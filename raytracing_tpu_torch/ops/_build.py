@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source ``csrc/<name>.cu`` exposes a plain C interface. At first
+use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``raytracing_tpu_torch/_build/<name>-<hash>/`` (git-ignored;
+the hash covers the source and the flags, so an edited source rebuilds) and
+loaded with ``ctypes``. Nothing here runs at import time, and nothing falls
+back: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+_ARGTYPES = {
+    "regen": {
+        "rt_regen_launch": [
+            _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # done_in, done_out, rad, segments
+            ctypes.POINTER(ctypes.c_float),            # camera (host, 20 floats)
+            _c_int, _c_int, _c_int, _c_int,            # num_slots, slot_base, map_param, tiled
+            ctypes.c_uint, _c_int, _c_int, _c_int,     # seed, sample_start, spp, max_depth
+            _c_int, _c_ptr,                            # t_end, stream
+        ],
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# Per kernel: build seconds (0.0 when the library was already built) and
+# the compiler's resource report (registers, shared memory, spills).
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels are built from "
+        "raytracing_tpu_torch/csrc at first use"
+    )
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this exact source
+    exists; returns its path. Concurrent builders serialize on a lock."""
+    lib = library_path(name)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / "build.lock", "a+") as lock:
+        fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
+        if lib.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+            return lib
+        tmp = lib.with_suffix(".so.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+        build_info[name] = {
+            "seconds": secs,
+            "ptxas": "\n".join(
+                ln for ln in (proc.stdout + proc.stderr).splitlines()
+                if "ptxas" in ln
+            ),
+        }
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name`` with its argtypes set."""
+    if name in _loaded:
+        return _loaded[name]
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, argtypes in _ARGTYPES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def error_string(lib: ctypes.CDLL, err: int) -> str:
+    return f"{err} ({lib.rt_error_string(err).decode()})"

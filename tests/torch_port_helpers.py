@@ -1,0 +1,167 @@
+"""Shared fixtures of the ``test_torch_*`` files: scenes built once in the
+JAX package and carried into the port through ``interop``, and the JAX side
+of a regeneration wave run as the JAX package's own tests run it on the CPU
+(TPU-interpret mode)."""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import raytracing_tpu as rt
+from raytracing_tpu.ops.pallas import trace as ptrace
+from raytracing_tpu.scene.types import SceneBuilder
+from raytracing_tpu_torch import interop
+from raytracing_tpu_torch.ops import trace as ttrace
+from raytracing_tpu_torch.runtime import tiling
+
+_TESTS = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_TESTS)
+COVER = "data/config/world.config.json"
+# Radiance tolerance of the JAX package's own kernel-vs-XLA parity test
+# (tests/test_pallas.py): f32 transcendentals and XLA-CPU's fused
+# multiply-adds round differently from torch's CPU kernels.
+ATOL, RTOL = 2e-4, 1e-3
+
+_CAMERA_VECTORS = (
+    "pixel00", "pixel_delta_u", "pixel_delta_v", "center",
+    "defocus_disk_u", "defocus_disk_v", "defocus_angle",
+)
+
+
+def scene_arrays(scene) -> dict:
+    return {
+        f.name: np.asarray(getattr(scene, f.name))
+        for f in dataclasses.fields(scene)
+        if f.name not in ("has_textures", "has_triangles")
+    }
+
+
+def to_port(jscene, jcam=None):
+    """JAX Scene (and DerivedCamera) -> the port's objects via interop."""
+    ts = interop.scene_from_numpy(
+        scene_arrays(jscene), has_textures=jscene.has_textures,
+        has_triangles=jscene.has_triangles,
+    )
+    if jcam is None:
+        return ts
+    cam = interop.camera_from_numpy(
+        {n: np.asarray(getattr(jcam, n)) for n in _CAMERA_VECTORS},
+        image_width=jcam.image_width, image_height=jcam.image_height,
+    )
+    return ts, cam
+
+
+def metal_scene_jax():
+    """All-metal fuzz-0 scene of tests/test_pallas.py: no RNG on any path."""
+    b = SceneBuilder()
+    b.add_metallic_sphere((0.0, -100.5, -1.0), 100.0, (0.5, 0.5, 0.5), 0.0)
+    b.add_metallic_sphere((0.0, 0.0, -1.0), 0.5, (0.8, 0.6, 0.2), 0.0)
+    b.add_metallic_sphere((1.2, 0.0, -1.5), 0.7, (0.9, 0.9, 0.9), 0.0)
+    return b.build()
+
+
+def golden_scene_jax():
+    """The golden scene of tests/test_golden.py."""
+    b = SceneBuilder()
+    b.add_metallic_sphere((0.0, -100.5, -1.0), 100.0, (0.5, 0.5, 0.5), 0.0)
+    b.add_lambertian_sphere((0.0, 0.0, -1.2), 0.5, (0.7, 0.3, 0.3))
+    b.add_metallic_sphere((1.1, 0.0, -1.4), 0.5, (0.9, 0.9, 0.9), 0.0)
+    b.add_dielectric_sphere((-1.1, 0.0, -1.2), 0.5, 1.5)
+    return b.build()
+
+
+def golden_params(**kw):
+    base = dict(
+        aspect_ratio=2.0, image_width=64, samples_per_pixel=1, max_depth=6,
+        vertical_fov=55.0, defocus_angle=0.0, focus_distance=1.0,
+        lookfrom=(0.0, 0.3, 1.2), lookat=(0.0, 0.0, -1.2),
+    )
+    base.update(kw)
+    return rt.CameraParameters(**base)
+
+
+def slots_of(jcam, order: str):
+    w, h = jcam.image_width, jcam.image_height
+    if order == "tiled":
+        return tiling.num_slots(w, h), tiling.tiles_per_row(w)
+    return -(-w * h // 1024) * 1024, w
+
+
+def render_jax(jscene, params, *, spp, depth, seed, order="tiled"):
+    """One full-budget JAX regeneration wave (interpret mode): (rad, seg)."""
+    jcam = rt.derive(params)
+    s, mp = slots_of(jcam, order)
+    with pltpu.force_tpu_interpret_mode():
+        rad, seg = ptrace.render_pixels_fused(
+            jscene, jcam.pixel00, jcam.pixel_delta_u, jcam.pixel_delta_v,
+            jcam.center, jcam.defocus_disk_u, jcam.defocus_disk_v,
+            jcam.defocus_angle, jnp.int32(mp), jnp.int32(0),
+            jnp.int32(seed), jnp.int32(0), s, spp, depth, pixel_order=order,
+        )
+    return np.asarray(rad), int(seg)
+
+
+def render_port(jscene, params, *, spp, depth, seed, order="tiled"):
+    """The same wave through the port on the same tables: (rad, seg, done)."""
+    jcam = rt.derive(params)
+    s, mp = slots_of(jcam, order)
+    ts, cam = to_port(jscene, jcam)
+    r2, s2, d2 = ttrace.render_pixels_fused(
+        ts, cam, slot_base=0, map_param=mp, seed=seed, sample_start=0,
+        spp=spp, max_depth=depth, t_end=spp,
+        done=torch.zeros(s, dtype=torch.int32), num_slots=s,
+        pixel_order=order,
+    )
+    return r2.numpy(), int(s2), d2.numpy()
+
+
+def render_both(jscene, params, *, spp, depth, seed, order="tiled"):
+    """One full-budget wave through both packages on the same tables.
+    Returns ((rad, seg) JAX, (rad, seg, done) port) as numpy/ints."""
+    kw = dict(spp=spp, depth=depth, seed=seed, order=order)
+    return render_jax(jscene, params, **kw), render_port(jscene, params, **kw)
+
+
+# XLA-CPU always lets LLVM contract a multiply and an add into one fused
+# multiply-add where the host has FMA; torch's CPU kernels round each op.
+# Capping the target ISA at AVX (which has no FMA) takes the contraction
+# away, so the JAX side rounds as the port does.
+NO_FMA_FLAG = "--xla_cpu_max_isa=AVX"
+
+
+def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
+    """``render_jax`` of the cover scene at ``width``, in a fresh process
+    whose XLA-CPU target has no FMA (the flag is read once, when the backend
+    starts). Returns (rad, seg)."""
+    out = tmp_path / "cover_wave_no_fma.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
+    env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
+    code = (
+        "import dataclasses, numpy as np, raytracing_tpu as rt, "
+        "torch_port_helpers as h; "
+        f"p, s = rt.load_and_build({COVER!r}); "
+        f"p = dataclasses.replace(p, image_width={width}); "
+        f"r, n = h.render_jax(s, p, spp={spp}, depth={depth}, seed={seed}); "
+        f"np.savez({str(out)!r}, rad=r, seg=n)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out) as data:
+        return data["rad"], int(data["seg"])
+
+
+def close_share(a, b) -> float:
+    """Share of slots whose radiance agrees within ATOL/RTOL."""
+    return float(np.isclose(a, b, atol=ATOL, rtol=RTOL).all(axis=1).mean())
