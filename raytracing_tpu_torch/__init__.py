@@ -1,13 +1,15 @@
 """raytracing_tpu_torch: the PyTorch/CUDA port of raytracing_tpu.
 
-The batch render of sphere scenes on an NVIDIA H100, with its hot loop in a
-CUDA C++ kernel written for Hopper (``csrc/regen.cu``) and a plain PyTorch
-version of that kernel beside it (``ops/trace.py``). The JAX package
+The batch render of sphere scenes, textured spheres and triangle meshes
+(glTF included) on an NVIDIA H100, with its hot loop in a CUDA C++ kernel
+written for Hopper (``csrc/regen.cu``) and a plain PyTorch version of that
+kernel beside it (``ops/trace.py``). The JAX package
 ``raytracing_tpu`` is the reference; this package never imports JAX.
 
   core/      thin-lens camera frame, color pipe
-  scene/     SoA sphere world (torch tensors), JSON world config
-  ops/       scene packing, the regeneration kernel and its build
+  scene/     SoA world (torch tensors), JSON world config, meshes + BVH,
+             glTF loader
+  ops/       scene packing, textures, the regeneration kernel and its build
   runtime/   wave-planning batch renderer, slot tiling
   utils/     PNG IO, structured logging
   interop    scene/camera state carried across from the JAX package
@@ -20,9 +22,12 @@ from .scene.config import (
     load_and_build,
     load_world,
     make_world_basic,
+    make_world_mesh,
+    make_world_meshes,
     make_world_stress,
+    make_world_textured,
 )
-from .scene.types import MaterialKind, Scene, SceneBuilder
+from .scene.types import MaterialKind, Scene, SceneBuilder, TextureKind
 from .runtime.renderer import Renderer, RenderProgress
 
 __version__ = "0.1.0"
@@ -36,8 +41,12 @@ __all__ = [
     "load_and_build",
     "load_world",
     "make_world_basic",
+    "make_world_mesh",
+    "make_world_meshes",
     "make_world_stress",
+    "make_world_textured",
     "MaterialKind",
+    "TextureKind",
     "Scene",
     "SceneBuilder",
     "Renderer",

@@ -3,6 +3,7 @@
 Usage:
   python -m raytracing_tpu_torch --config data/config/world.config.json \\
       --width 1200 --spp 8 --out render.png
+  python -m raytracing_tpu_torch --gltf model.glb:2.0:0,1,-3 --out mesh.png
 
 Renders on the CUDA card by default (``--device cuda``) and exits non-zero
 when CUDA is not available; ``--device cpu`` runs the kernels' plain PyTorch
@@ -19,7 +20,8 @@ import sys
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="raytracing_tpu_torch",
-        description="PyTorch/CUDA batch path tracer (RTiOW sphere scenes).",
+        description="PyTorch/CUDA batch path tracer (RTiOW sphere scenes, "
+        "textured spheres, triangle meshes).",
     )
     ap.add_argument(
         "--config",
@@ -31,6 +33,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
         type=int,
         metavar="N",
         help="use the procedural N-sphere stress scene instead of --config",
+    )
+    ap.add_argument(
+        "--gltf",
+        action="append",
+        default=[],
+        metavar="PATH[:SCALE[:TX,TY,TZ]]",
+        help="add every mesh primitive of a .gltf/.glb asset to the --config "
+        "scene (repeatable), with an optional uniform scale and "
+        "translation, e.g. --gltf model.glb:2.0:0,1,-3",
     )
     ap.add_argument("--out", default="render.png", help="output PNG path")
     ap.add_argument("--width", type=int, help="override image width")
@@ -53,8 +64,37 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def parse_gltf_spec(spec: str) -> tuple[str, float, tuple[float, float, float]]:
+    """``PATH[:SCALE[:TX,TY,TZ]]`` -> (path, scale, translation); raises
+    ValueError on a malformed spec."""
+    parts = spec.rsplit(":", 2)
+    path = parts[0]
+    try:
+        scale = float(parts[1]) if len(parts) > 1 else 1.0
+        values = parts[2].split(",") if len(parts) > 2 else ["0", "0", "0"]
+        if len(values) != 3:
+            raise ValueError(f"{len(values)} translation values, need 3")
+        translate = tuple(float(v) for v in values)
+    except ValueError as e:
+        raise ValueError(
+            f"--gltf {spec!r}: expected PATH[:SCALE[:TX,TY,TZ]] ({e})"
+        ) from None
+    if not path:
+        raise ValueError(f"--gltf {spec!r}: empty path")
+    return path, scale, translate
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_arg_parser().parse_args(argv)
+    try:
+        gltf_specs = [parse_gltf_spec(spec) for spec in args.gltf]
+    except ValueError as e:
+        print(f"raytracing_tpu_torch: {e}", file=sys.stderr)
+        return 2
+    if gltf_specs and args.stress:
+        print("raytracing_tpu_torch: --gltf adds to the --config scene, not "
+              "to --stress", file=sys.stderr)
+        return 2
 
     from .utils import logging as rlogging
 
@@ -67,6 +107,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from .runtime.renderer import Renderer
     from .scene import config as rconfig
+    from .scene.gltf import GLTFError
     from .utils import png as rpng
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -92,11 +133,21 @@ def main(argv: list[str] | None = None) -> int:
     if args.depth:
         cam = dataclasses.replace(cam, max_depth=args.depth)
     if not args.stress:
-        _, scene = rconfig.build_world(dataclasses.replace(world, camera=cam))
+        def extra(builder):
+            for path, scale, translate in gltf_specs:
+                builder.add_gltf(path, scale=scale, translate=translate)
+
+        try:
+            _, scene = rconfig.build_world(
+                dataclasses.replace(world, camera=cam), extra=extra
+            )
+        except (OSError, GLTFError) as e:
+            print(f"raytracing_tpu_torch: {e}", file=sys.stderr)
+            return 2
     log.info(
-        "scene %s: %d spheres; %dx%d @ %d spp depth %d on %s",
-        source, scene.num_objects, cam.image_width, cam.image_height,
-        cam.samples_per_pixel, cam.max_depth, args.device,
+        "scene %s: %d spheres, %d triangles; %dx%d @ %d spp depth %d on %s",
+        source, scene.num_objects, scene.num_triangles, cam.image_width,
+        cam.image_height, cam.samples_per_pixel, cam.max_depth, args.device,
     )
 
     renderer = Renderer(scene, cam, seed=args.seed, device=args.device)

@@ -93,8 +93,9 @@ def resolve_device(device) -> torch.device:
 
 
 class Renderer:
-    """Progressive batch renderer for one sphere scene + camera on one
-    device (``"cuda"``: the Hopper kernel; ``"cpu"``: its plain version)."""
+    """Progressive batch renderer for one scene (spheres, textures,
+    triangles) + camera on one device (``"cuda"``: the Hopper kernel;
+    ``"cpu"``: its plain version)."""
 
     def __init__(
         self,

@@ -1,12 +1,13 @@
-"""World/scene configuration: JSON schema + procedural cover-scene builder.
+"""World/scene configuration: JSON schema + procedural scene builders.
 
-Counterpart of ``raytracing_tpu/scene/config.py`` for sphere worlds. It reads
-the same JSON layout (``{"material_def": "<TypeName>", ...}`` tagged
-materials) and builds the same scenes: ``build_world`` keeps the reference
-quirk that places every grid sphere (22 x 22 + 4 = 488 spheres with the
-shipped config) and draws from ``numpy.random.default_rng`` in the same
-order, so the port's Scene arrays equal the JAX package's. The checker and
-image material defs belong to the textures slice and are refused here.
+Counterpart of ``raytracing_tpu/scene/config.py``. It reads the same JSON
+layout (``{"material_def": "<TypeName>", ...}`` tagged materials, the
+checker and image defs included) and builds the same scenes:
+``build_world`` keeps the reference quirk that places every grid sphere
+(22 x 22 + 4 = 488 spheres with the shipped config) and draws from
+``numpy.random.default_rng`` in the same order, and the textured and mesh
+scene builders make the same calls, so the port's Scene arrays equal the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -50,15 +51,35 @@ class MetallicMatDef:
     fuzzines: float
 
 
-MaterialDef = AlbedoMatDef | DielectricMatDef | MetallicMatDef
+@dataclasses.dataclass(frozen=True)
+class CheckerMatDef:
+    """Lambertian sphere with a 3D checker texture."""
+
+    scale: float
+    even_albedo: tuple[float, float, float]
+    odd_albedo: tuple[float, float, float]
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageMatDef:
+    """Image-textured lambertian sphere; ``file`` is a PNG path (resolved
+    against the config file's directory at load time)."""
+
+    file: str
+
+
+MaterialDef = (
+    AlbedoMatDef | DielectricMatDef | MetallicMatDef | CheckerMatDef
+    | ImageMatDef
+)
 
 _MATERIAL_DEF_TAGS = {
     "AlbedoMatDef": AlbedoMatDef,
     "DielectricMatDef": DielectricMatDef,
     "MetallicMatDef": MetallicMatDef,
+    "CheckerMatDef": CheckerMatDef,
+    "ImageMatDef": ImageMatDef,
 }
-# Tags the JAX package also accepts; their slice is not ported yet.
-_TEXTURE_TAGS = ("CheckerMatDef", "ImageMatDef")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +104,10 @@ class WorldDefinition:
     )
 
 
-def _parse_material_def(obj: dict[str, Any]) -> MaterialDef:
+def _parse_material_def(
+    obj: dict[str, Any], base_dir: pathlib.Path | None = None
+) -> MaterialDef:
     tag = obj["material_def"]
-    if tag in _TEXTURE_TAGS:
-        raise NotImplementedError(
-            f"material_def {tag!r} needs the textures slice, which "
-            "raytracing_tpu_torch does not have yet"
-        )
     cls = _MATERIAL_DEF_TAGS.get(tag)
     if cls is None:
         raise ValueError(f"unknown material_def tag: {tag!r}")
@@ -97,13 +115,27 @@ def _parse_material_def(obj: dict[str, Any]) -> MaterialDef:
         return AlbedoMatDef(tuple(float(x) for x in obj["albedo"]))
     if cls is DielectricMatDef:
         return DielectricMatDef(float(obj["refindex"]))
+    if cls is CheckerMatDef:
+        return CheckerMatDef(
+            float(obj["scale"]),
+            tuple(float(x) for x in obj["even_albedo"]),
+            tuple(float(x) for x in obj["odd_albedo"]),
+        )
+    if cls is ImageMatDef:
+        f = pathlib.Path(obj["file"])
+        if base_dir is not None and not f.is_absolute():
+            f = base_dir / f
+        return ImageMatDef(str(f))
     return MetallicMatDef(
         tuple(float(x) for x in obj["albedo"]), float(obj["fuzzines"])
     )
 
 
-def world_from_dict(data: dict[str, Any]) -> WorldDefinition:
-    """Parsed JSON -> WorldDefinition, defaults for absent fields."""
+def world_from_dict(
+    data: dict[str, Any], base_dir: pathlib.Path | None = None
+) -> WorldDefinition:
+    """Parsed JSON -> WorldDefinition, defaults for absent fields;
+    ``base_dir`` resolves relative ImageMatDef paths."""
     defaults = WorldDefinition()
     cam_raw = data.get("camera", {})
     cd = defaults.camera
@@ -129,7 +161,7 @@ def world_from_dict(data: dict[str, Any]) -> WorldDefinition:
                     tuple(float(x) for x in sphere_raw["center"]),
                     float(sphere_raw["radius"]),
                 ),
-                _parse_material_def(mat_raw),
+                _parse_material_def(mat_raw, base_dir),
             )
             for sphere_raw, mat_raw in data["objects"]
         ]
@@ -162,8 +194,9 @@ def world_from_dict(data: dict[str, Any]) -> WorldDefinition:
 
 def load_world(path: str | pathlib.Path) -> WorldDefinition:
     """JSON file -> WorldDefinition."""
+    path = pathlib.Path(path)
     with open(path, "r", encoding="utf-8") as f:
-        return world_from_dict(json.load(f))
+        return world_from_dict(json.load(f), base_dir=path.parent)
 
 
 def _add_explicit_objects(
@@ -178,6 +211,17 @@ def _add_explicit_objects(
             builder.add_metallic_sphere(
                 sphere.center, sphere.radius, mat.albedo, mat.fuzzines
             )
+        elif isinstance(mat, CheckerMatDef):
+            builder.add_checker_sphere(
+                sphere.center, sphere.radius, mat.scale, mat.even_albedo,
+                mat.odd_albedo,
+            )
+        elif isinstance(mat, ImageMatDef):
+            from ..utils import png as _png
+
+            builder.add_image_sphere(
+                sphere.center, sphere.radius, _png.read_png(mat.file)
+            )
         else:
             raise TypeError(f"unknown material def: {mat!r}")
 
@@ -187,6 +231,7 @@ def build_world(
     *,
     seed: int | None = DEFAULT_GRID_SEED,
     apply_center_filter: bool = False,
+    extra=None,
 ) -> tuple[CameraParameters, Scene]:
     """Explicit objects plus the random grid of small spheres.
 
@@ -196,6 +241,8 @@ def build_world(
     0.5 + 0.5*U3, fuzz = 0.5*U), else dielectric with ior = 1.2 + 0.4*U.
     Without ``apply_center_filter`` every grid sphere is placed (the
     reference's ``length()`` quirk). Draw order equals the JAX package's.
+    ``extra``, when given, is called with the builder last, before it
+    builds (the CLI adds its glTF assets so).
     """
     builder = SceneBuilder()
     _add_explicit_objects(builder, world.objects)
@@ -227,6 +274,8 @@ def build_world(
                 ior = 1.2 + 0.4 * rand.random()
                 builder.add_dielectric_sphere(center, 0.2, ior)
 
+    if extra is not None:
+        extra(builder)
     return world.camera, builder.build()
 
 
@@ -296,6 +345,157 @@ def make_world_stress(
         focus_distance=side * 1.2,
         lookfrom=(side * 0.9, side * 0.25, side * 0.9),
         lookat=(0.0, 0.0, 0.0),
+        world_up=(0.0, 1.0, 0.0),
+    )
+    return camera, builder.build()
+
+
+def make_procedural_earth(size: int = 64, seed: int = 7) -> np.ndarray:
+    """A self-contained (size, size, 3) float32 planet texture:
+    ocean/land from smoothed value noise (wrapping in u), polar caps."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((9, 9))
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1)
+    gx = xx * 8
+    gy = yy * 8
+    x0 = np.floor(gx).astype(int)
+    y0 = np.floor(gy).astype(int)
+    fx = gx - x0
+    fy = gy - y0
+    x1 = np.minimum(x0 + 1, 8) % 8
+    y1 = np.minimum(y0 + 1, 8)
+    n = (
+        coarse[y0, x0 % 8] * (1 - fx) * (1 - fy)
+        + coarse[y0, x1] * fx * (1 - fy)
+        + coarse[y1, x0 % 8] * (1 - fx) * fy
+        + coarse[y1, x1] * fx * fy
+    )
+    land = n > 0.55
+    img = np.empty((size, size, 3), np.float32)
+    img[...] = (0.05, 0.15, 0.45)                      # ocean
+    img[land] = (0.15, 0.45, 0.12)                     # land
+    polar = (yy < 0.12) | (yy > 0.88)
+    img[polar] = (0.9, 0.92, 0.95)                     # ice caps
+    return img
+
+
+def make_world_textured(
+    *, image_width: int = 1200, earth_size: int = 64
+) -> tuple[CameraParameters, Scene]:
+    """Checker and image-textured spheres with a defocus camera
+    (bench.py's ``textured``)."""
+    builder = SceneBuilder()
+    builder.add_checker_sphere(
+        (0.0, -1000.0, 0.0), 1000.0, 0.8, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)
+    )
+    builder.add_image_sphere(
+        (0.0, 1.0, 0.0), 1.0, make_procedural_earth(earth_size)
+    )
+    builder.add_dielectric_sphere((-2.5, 1.0, 1.0), 1.0, 1.5)
+    builder.add_metallic_sphere((2.5, 1.0, -0.5), 1.0, (0.7, 0.6, 0.5), 0.05)
+    builder.add_checker_sphere(
+        (1.2, 0.35, 1.8), 0.35, 0.12, (0.8, 0.1, 0.1), (0.95, 0.85, 0.2)
+    )
+    camera = CameraParameters(
+        aspect_ratio=16.0 / 9.0,
+        image_width=image_width,
+        samples_per_pixel=64,
+        max_depth=16,
+        vertical_fov=25.0,
+        defocus_angle=0.8,
+        focus_distance=9.0,
+        lookfrom=(7.0, 2.2, 5.5),
+        lookat=(0.0, 0.9, 0.0),
+        world_up=(0.0, 1.0, 0.0),
+    )
+    return camera, builder.build()
+
+
+def make_world_mesh(
+    *, image_width: int = 1200, subdivisions: int = 3,
+    gltf_path: str | pathlib.Path | None = None,
+) -> tuple[CameraParameters, Scene]:
+    """A triangle mesh on a checker ground between two spheres (bench.py's
+    ``mesh:S``): ``gltf_path`` when given, else a metal icosphere of
+    20 * 4^subdivisions triangles (1280 by default)."""
+    from . import mesh as _mesh
+    from .types import MaterialKind
+
+    builder = SceneBuilder()
+    builder.add_checker_sphere(
+        (0.0, -1000.0, 0.0), 1000.0, 0.8, (0.35, 0.35, 0.35), (0.15, 0.15, 0.2)
+    )
+    if gltf_path is not None:
+        builder.add_gltf(gltf_path, translate=(0.0, 1.0, 0.0))
+    else:
+        verts, faces = _mesh.make_icosphere(subdivisions)
+        builder.add_mesh(
+            verts + np.float32([0.0, 1.0, 0.0]), faces,
+            albedo=(0.75, 0.55, 0.25), kind=MaterialKind.METALLIC, fuzz=0.08,
+        )
+    builder.add_dielectric_sphere((-2.4, 0.8, 1.2), 0.8, 1.5)
+    builder.add_lambertian_sphere((2.4, 0.8, -0.6), 0.8, (0.2, 0.35, 0.65))
+    camera = CameraParameters(
+        aspect_ratio=16.0 / 9.0,
+        image_width=image_width,
+        samples_per_pixel=64,
+        max_depth=16,
+        vertical_fov=28.0,
+        defocus_angle=0.0,
+        focus_distance=8.0,
+        lookfrom=(6.0, 2.4, 5.0),
+        lookat=(0.0, 0.9, 0.0),
+        world_up=(0.0, 1.0, 0.0),
+    )
+    return camera, builder.build()
+
+
+def make_world_meshes(
+    k: int = 4,
+    *,
+    image_width: int = 1200,
+    subdivisions: int = 2,
+) -> tuple[CameraParameters, Scene]:
+    """``k`` separated icospheres (20 * 4^subdivisions triangles each) on a
+    checker ground, every other one behind an occluding metal sphere
+    (bench.py's ``meshes:K``)."""
+    from . import mesh as _mesh
+    from .types import MaterialKind
+
+    builder = SceneBuilder()
+    builder.add_checker_sphere(
+        (0.0, -1000.0, 0.0), 1000.0, 0.8, (0.35, 0.35, 0.35), (0.15, 0.15, 0.2)
+    )
+    verts, faces = _mesh.make_icosphere(subdivisions)
+    palette = [
+        ((0.75, 0.55, 0.25), MaterialKind.METALLIC, 0.08),
+        ((0.3, 0.55, 0.8), MaterialKind.LAMBERTIAN, 0.0),
+        ((0.8, 0.3, 0.3), MaterialKind.METALLIC, 0.2),
+        ((0.5, 0.8, 0.4), MaterialKind.LAMBERTIAN, 0.0),
+    ]
+    span = 2.6
+    for i in range(k):
+        x = (i - (k - 1) / 2.0) * span
+        albedo, kind, fuzz = palette[i % len(palette)]
+        builder.add_mesh(
+            verts + np.float32([x, 1.0, 0.0]), faces,
+            albedo=albedo, kind=kind, fuzz=fuzz,
+        )
+        if i % 2 == 0:
+            builder.add_metallic_sphere(
+                (x * 0.72, 0.85, 2.1), 0.85, (0.7, 0.65, 0.6), 0.05
+            )
+    builder.add_dielectric_sphere(((k / 2.0) * span - 0.4, 0.7, 3.2), 0.7, 1.5)
+    camera = CameraParameters(
+        aspect_ratio=16.0 / 9.0,
+        image_width=image_width,
+        samples_per_pixel=64,
+        max_depth=16,
+        vertical_fov=30.0,
+        defocus_angle=0.0,
+        focus_distance=9.0,
+        lookfrom=(0.0, 2.6, 9.0),
+        lookat=(0.0, 0.9, 0.0),
         world_up=(0.0, 1.0, 0.0),
     )
     return camera, builder.build()

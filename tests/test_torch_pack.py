@@ -1,4 +1,5 @@
-"""Port vs JAX package: the packed kernel tables are bit-equal."""
+"""Port vs JAX package: the packed kernel tables (spheres, the 16-column
+textured shade table, texels, triangles) are bit-equal."""
 
 import pytest
 
@@ -13,7 +14,10 @@ from raytracing_tpu.scene.types import SceneBuilder  # noqa: E402
 
 from raytracing_tpu_torch.ops import trace as ttrace  # noqa: E402
 
-from torch_port_helpers import COVER, golden_scene_jax, to_port  # noqa: E402
+from torch_port_helpers import (  # noqa: E402
+    COVER, golden_mesh_scene_jax, golden_scene_jax, golden_textured_scene_jax,
+    to_port, write_icosphere_glb,
+)
 
 
 def _tied_scene():
@@ -27,29 +31,101 @@ def _tied_scene():
     return b.build()
 
 
+def _big_texture_scene():
+    # A 100x80 image and a 30x20 one: the stack is nearest-downsampled to
+    # the 64-texel cap, and each texture's valid size scales with ceil.
+    rng = np.random.default_rng(3)
+    b = SceneBuilder()
+    b.add_checker_sphere((0.0, -1000.0, 0.0), 1000.0, 0.5, (0.1, 0.2, 0.3),
+                         (0.9, 0.8, 0.7))
+    b.add_image_sphere((0.0, 1.0, 0.0), 1.0, rng.random((80, 100, 3)))
+    b.add_image_sphere((2.0, 1.0, 0.0), 0.5,
+                       rng.integers(0, 256, (20, 30, 3), np.uint8))
+    b.add_lambertian_sphere((-2.0, 1.0, 0.0), 0.7, (0.2, 0.4, 0.6))
+    return b.build()
+
+
+def _mesh_only_scene():
+    from raytracing_tpu.scene import mesh as jmesh
+
+    verts, faces = jmesh.make_icosphere(2)
+    b = SceneBuilder()
+    b.add_mesh(verts, faces, albedo=(0.5, 0.6, 0.7))
+    b.add_mesh(verts + np.float32([3.0, 0.0, 0.0]), faces,
+               kind=rt.MaterialKind.DIELECTRIC, ior=1.4)
+    return b.build()
+
+
 _SCENES = {
     "cover": lambda: rt.load_and_build(COVER)[1],
     "stress2048": lambda: rt.make_world_stress(2048)[1],
     "golden": golden_scene_jax,
     "ties": _tied_scene,
     "empty": lambda: SceneBuilder().build(),
+    "golden_textured": golden_textured_scene_jax,
+    "golden_mesh": golden_mesh_scene_jax,
+    "textured": lambda: rt.make_world_textured(image_width=64)[1],
+    "mesh3": lambda: rt.make_world_mesh(image_width=64)[1],
+    "meshes4": lambda: rt.make_world_meshes(4, image_width=64)[1],
+    "mesh_only": _mesh_only_scene,
+    "big_texture": _big_texture_scene,
 }
 
 
-@pytest.mark.parametrize("name", sorted(_SCENES))
-def test_pack_tables_bit_equal(name):
-    js = _SCENES[name]()
+def _bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        assert x.dtype == torch.float32 and x.is_contiguous()
+        return x.view(torch.int32).numpy()
+    return np.asarray(x).view(np.int32)
+
+
+def _assert_tables_equal(js):
     gh, gc, sh, n = ptrace.pack_scene(js)
     tables = ttrace.pack_scene(to_port(js))
     assert tables.n_actual == n
     for want, got, col in ((gh, tables.geom_h, "geom_h"),
                            (gc, tables.geom_c, "geom_c"),
                            (sh, tables.shade, "shade")):
-        assert got.dtype == torch.float32 and got.is_contiguous()
-        np.testing.assert_array_equal(
-            got.view(torch.int32).numpy(), np.asarray(want).view(np.int32),
-            err_msg=col,
-        )
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=col)
+    assert tables.textured == js.has_textures
+    if js.has_textures:
+        tex, kh, kw, kwh = ptrace.pack_textures(js)
+        assert (tables.kh, tables.kw) == (kh, kw)
+        np.testing.assert_array_equal(_bits(tables.tex), _bits(tex))
+        _, _, _, kwh_t = ttrace.pack_textures(to_port(js))
+        np.testing.assert_array_equal(kwh_t.numpy(), np.asarray(kwh))
+    assert (tables.tri is not None) == js.has_triangles
+    if js.has_triangles:
+        tri, m = ptrace.pack_triangles(js)
+        assert tables.m_actual == m
+        np.testing.assert_array_equal(_bits(tables.tri), _bits(tri))
+    return tables
+
+
+@pytest.mark.parametrize("name", sorted(_SCENES))
+def test_pack_tables_bit_equal(name):
+    _assert_tables_equal(_SCENES[name]())
+
+
+def test_pack_gltf_scene_bit_equal(tmp_path):
+    glb = write_icosphere_glb(tmp_path / "ico.glb", 2)
+    _, js = rt.make_world_mesh(image_width=64, gltf_path=glb)
+    tables = _assert_tables_equal(js)
+    assert (tables.m_actual, tables.m_pad, tables.tri_rule) == (320, 512, "flat")
+
+
+def test_texture_downsample_and_triangle_pad_rows():
+    t = _assert_tables_equal(_big_texture_scene())
+    # 2 textures, stack 80x100 -> 64x64 planes; 8192 texel rows.
+    assert (t.kh, t.kw, t.tex.shape[0]) == (64, 64, 8192)
+    _, _, _, kwh = ttrace.pack_textures(to_port(_big_texture_scene()))
+    assert kwh.tolist() == [[0, 0], [64, 64], [20, 16], [0, 0]]
+    m = _assert_tables_equal(_mesh_only_scene())
+    assert (m.n_actual, m.m_actual, m.m_pad, m.tri_rule) == (0, 640, 1024, "2l")
+    tri = m.tri.numpy()
+    assert (tri[640:, 0:3] == np.float32(1e9)).all()
+    assert (tri[640:, 3:9] == 0).all() and (tri[640:, 11:] == 0).all()
+    assert ttrace.kernel_variant(m) == "regen_tri_2l"
 
 
 def test_morton_order_equals_reference():
@@ -86,13 +162,3 @@ def test_pad_rows_and_packed_words():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     kinds = set(np.round(param.numpy()[:n], 3).tolist())
     assert -1.0 in kinds and any(k > 5.0 for k in kinds)
-
-
-def test_pack_refuses_textured_and_triangle_scenes():
-    import dataclasses
-
-    ts = to_port(golden_scene_jax())
-    with pytest.raises(NotImplementedError):
-        ttrace.pack_scene(dataclasses.replace(ts, has_textures=True))
-    with pytest.raises(NotImplementedError):
-        ttrace.pack_scene(dataclasses.replace(ts, has_triangles=True))

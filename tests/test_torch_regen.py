@@ -23,8 +23,9 @@ from raytracing_tpu_torch.runtime import tiling  # noqa: E402
 
 from torch_port_helpers import (  # noqa: E402
     ATOL, COVER, RTOL, close_share, cover_wave_jax_without_fma,
-    golden_params, golden_scene_jax, metal_scene_jax, render_both,
-    render_port, to_port,
+    golden_mesh_scene_jax, golden_params, golden_scene_jax,
+    golden_textured_scene_jax, metal_scene_jax, render_both, render_port,
+    to_port,
 )
 
 
@@ -195,6 +196,17 @@ def test_wrapper_rejects_bad_inputs():
             tables, cam, t_end=4, done=zero,
             radiance_sum=torch.zeros((s, 3), dtype=torch.float64), **meta,
         )
-    textured = dataclasses.replace(to_port(golden_scene_jax()), has_textures=True)
-    with pytest.raises(NotImplementedError):
-        ttrace.render_pixels_fused(textured, cam, t_end=4, done=zero, **meta)
+    # Textured tables need the 16-column shade table; triangle tables the
+    # 16-column triangle table.
+    textured = ttrace.pack_scene(to_port(golden_textured_scene_jax()))
+    with pytest.raises(ValueError):
+        ttrace.render_pixels_fused(
+            dataclasses.replace(textured, shade=textured.shade[:, :8].contiguous()),
+            cam, t_end=4, done=zero, **meta,
+        )
+    meshed = ttrace.pack_scene(to_port(golden_mesh_scene_jax()))
+    with pytest.raises(ValueError):
+        ttrace.render_pixels_fused(
+            dataclasses.replace(meshed, tri=meshed.tri[:, :11].contiguous()),
+            cam, t_end=4, done=zero, **meta,
+        )

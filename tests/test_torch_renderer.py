@@ -1,5 +1,6 @@
-"""The port's batch renderer and CLI on the CPU: golden image, wave-split
-invariance, progress reporting, and the no-JAX import contract."""
+"""The port's batch renderer and CLI on the CPU: golden images (spheres,
+textures, triangles), wave-split invariance, progress reporting, the
+glTF option, and the no-JAX import contract."""
 
 import os
 import subprocess
@@ -15,7 +16,10 @@ import raytracing_tpu_torch as rtt  # noqa: E402
 from raytracing_tpu_torch.runtime import renderer as trenderer  # noqa: E402
 from raytracing_tpu_torch.utils import png  # noqa: E402
 
-from torch_port_helpers import golden_params, golden_scene_jax, to_port  # noqa: E402
+from torch_port_helpers import (  # noqa: E402
+    golden_mesh_scene_jax, golden_params, golden_scene_jax,
+    golden_textured_scene_jax, to_port, write_icosphere_glb,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "mini_pallas.png")
@@ -36,6 +40,21 @@ def test_golden_mini_pallas_byte_equal():
     img = r.render(spp=1)
     np.testing.assert_array_equal(img, png.read_png(GOLDEN))
     assert r.samples_done == 1 and r.segments_traced > 0
+
+
+@pytest.mark.parametrize("name", ["mini_textured", "mini_mesh"])
+def test_golden_textured_and_mesh_byte_equal(name):
+    # The JAX package's regeneration-kernel renders of the checker + image
+    # texture scene and the 80-triangle mesh scene (64x32 @ 1 spp, seed 11,
+    # depth 6), reproduced byte for byte by the plain version.
+    jscene = (golden_textured_scene_jax if name == "mini_textured"
+              else golden_mesh_scene_jax)()
+    _, params = _golden_inputs()
+    r = rtt.Renderer(to_port(jscene), params, seed=11, device="cpu")
+    img = r.render(spp=1)
+    want = png.read_png(os.path.join(ROOT, "tests", "golden", f"{name}.png"))
+    np.testing.assert_array_equal(img, want)
+    assert r.segments_traced > 0
 
 
 def test_waves_equal_one_shot_render():
@@ -130,10 +149,46 @@ def test_profile_tool_scenes_and_busy_union():
     assert scene.num_objects == 488 and params.samples_per_pixel == 4
     params, scene = profile_render.build("stress:300", 64, 2, 3)
     assert scene.num_objects == 300 and params.max_depth == 3
+    params, scene = profile_render.build("textured", 64, 1, 1)
+    assert scene.has_textures and params.aspect_ratio == 16.0 / 9.0
+    _, scene = profile_render.build("mesh", 64, 1, 1)
+    assert scene.num_triangles == 1280 and scene.has_textures
+    _, scene = profile_render.build("mesh:1", 64, 1, 1)
+    assert scene.num_triangles == 80
+    _, scene = profile_render.build("meshes:3", 64, 1, 1)
+    assert scene.num_triangles == 960 and scene.num_objects == 4
     with pytest.raises(ValueError):
-        profile_render.build("textured", 64, 1, 1)
+        profile_render.build("nope", 64, 1, 1)
     # Device busy time is the union of overlapping intervals.
     assert profile_render._union_us([(5, 6), (0, 2), (1, 3), (3, 4)]) == 5.0
+
+
+def test_profile_tool_bound_counts_only_real_rows():
+    from raytracing_tpu_torch.ops import trace as ttrace
+    from raytracing_tpu_torch.tools import profile_render as pr
+
+    seg = 1000
+    _, scene = pr.build("textured", 64, 1, 1)
+    tables = ttrace.pack_scene(scene)
+    assert (tables.n_pad, tables.n_actual) == (128, 5)
+    b = pr.bound(tables, seg, 1024)
+    assert b["fp32_ops"] == seg * (pr.SEGMENT_OPS + 5 * pr.SPHERE_PAIR_OPS)
+    # Two-level rule: the real triangles plus one re-swept window, not the
+    # 2048 padded rows.
+    _, scene = pr.build("mesh:3", 64, 1, 1)
+    tables = ttrace.pack_scene(scene)
+    assert (tables.m_pad, tables.m_actual, tables.n_actual) == (2048, 1280, 3)
+    b = pr.bound(tables, seg, 1024)
+    assert b["fp32_ops"] == seg * (
+        pr.SEGMENT_OPS + 3 * pr.SPHERE_PAIR_OPS
+        + (1280 + ttrace.TRI_WIN) * pr.TRIANGLE_PAIR_OPS + pr.TRI_EXACT_OPS
+    )
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(b["fp32_ops"] / pr.FP32_PEAK * 1e3)
+    # With no segments only the bytes are left.
+    b = pr.bound(tables, 0, 1024)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] > 0
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / pr.HBM_RATE * 1e3)
 
 
 def test_cuda_device_without_cuda_raises():
@@ -163,6 +218,35 @@ def test_cli_cpu_render_exits_zero(tmp_path):
     assert proc.returncode == 0, proc.stderr
     img = png.read_png(out)
     assert img.shape == (37, 64, 3) and img.max() > 0
+
+
+def test_cli_gltf_cpu_render_exits_zero(tmp_path):
+    glb = write_icosphere_glb(tmp_path / "ico.glb", 1)
+    out = tmp_path / "gltf.png"
+    config = os.path.join(ROOT, "data", "config", "world.config.json")
+    proc = _run(
+        ["-m", "raytracing_tpu_torch", "--device", "cpu", "--config", config,
+         "--gltf", f"{glb}:1.5:0,1,0", "--width", "48", "--spp", "1",
+         "--depth", "3", "--out", str(out)],
+        tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr
+    img = png.read_png(out)
+    assert img.shape == (28, 48, 3) and img.max() > 0
+
+
+@pytest.mark.parametrize("spec", ["ico.glb:x", "ico.glb:1:0,1", ":2",
+                                  "missing.glb"])
+def test_cli_bad_gltf_spec_exits_2(tmp_path, spec):
+    config = os.path.join(ROOT, "data", "config", "world.config.json")
+    proc = _run(
+        ["-m", "raytracing_tpu_torch", "--device", "cpu", "--config", config,
+         "--gltf", spec, "--width", "16", "--out", str(tmp_path / "x.png")],
+        tmp_path,
+    )
+    assert proc.returncode == 2, proc.stderr
+    assert "raytracing_tpu_torch:" in proc.stderr
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_cli_cuda_missing_exits_nonzero(tmp_path):

@@ -6,7 +6,9 @@ of a regeneration wave run as the JAX package's own tests run it on the CPU
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import struct
 import subprocess
 import sys
 
@@ -78,6 +80,71 @@ def golden_scene_jax():
     return b.build()
 
 
+def golden_textured_scene_jax():
+    """The textured golden scene of tests/test_golden.py."""
+    from test_golden import _textured_scene
+
+    return _textured_scene()
+
+
+def golden_mesh_scene_jax():
+    """The mesh golden scene of tests/test_golden.py (80 triangles)."""
+    from test_golden import _mesh_scene
+
+    return _mesh_scene()
+
+
+def write_icosphere_glb(path, subdivisions=1, *, metallic=True):
+    """A .glb holding one icosphere mesh (u32 indices) under a node with a
+    rotation, scale and translation, and a pbr material; the glb layout of
+    tests/test_mesh.py's writer."""
+    from raytracing_tpu.scene import mesh as jmesh
+
+    verts, faces = jmesh.make_icosphere(subdivisions)
+    pos = np.ascontiguousarray(verts, np.float32)
+    idx = np.ascontiguousarray(faces.reshape(-1), np.uint32)
+    blob = pos.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{
+            "mesh": 0, "translation": [0.2, 0.5, -1.0],
+            "rotation": [0.0, 0.3826834, 0.0, 0.9238795],
+            "scale": [0.6, 0.6, 0.6],
+        }],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0}, "indices": 1, "material": 0,
+        }]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.8, 0.5, 0.3, 1.0],
+            "metallicFactor": 1.0 if metallic else 0.0,
+            "roughnessFactor": 0.15,
+        }}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos),
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5125, "count": idx.size,
+             "type": "SCALAR"},
+        ],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": pos.nbytes},
+            {"buffer": 0, "byteOffset": pos.nbytes, "byteLength": idx.nbytes},
+        ],
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    blob += b"\x00" * ((-len(blob)) % 4)
+    body = (
+        struct.pack("<II", len(js), 0x4E4F534A) + js
+        + struct.pack("<II", len(blob), 0x004E4942) + blob
+    )
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+    return path
+
+
 def golden_params(**kw):
     base = dict(
         aspect_ratio=2.0, image_width=64, samples_per_pixel=1, max_depth=6,
@@ -137,18 +204,19 @@ def render_both(jscene, params, *, spp, depth, seed, order="tiled"):
 NO_FMA_FLAG = "--xla_cpu_max_isa=AVX"
 
 
-def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
-    """``render_jax`` of the cover scene at ``width``, in a fresh process
-    whose XLA-CPU target has no FMA (the flag is read once, when the backend
-    starts). Returns (rad, seg)."""
-    out = tmp_path / "cover_wave_no_fma.npz"
+def wave_jax_without_fma(tmp_path, scene_expr: str, *, width, spp, depth, seed):
+    """``render_jax`` of the scene that the Python expression ``scene_expr``
+    builds as (params, scene) with ``rt`` (the JAX package) in scope, at
+    ``width``, in a fresh process whose XLA-CPU target has no FMA (the flag
+    is read once, when the backend starts). Returns (rad, seg)."""
+    out = tmp_path / "wave_no_fma.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
     env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
     code = (
         "import dataclasses, numpy as np, raytracing_tpu as rt, "
         "torch_port_helpers as h; "
-        f"p, s = rt.load_and_build({COVER!r}); "
+        f"p, s = {scene_expr}; "
         f"p = dataclasses.replace(p, image_width={width}); "
         f"r, n = h.render_jax(s, p, spp={spp}, depth={depth}, seed={seed}); "
         f"np.savez({str(out)!r}, rad=r, seg=n)"
@@ -160,6 +228,14 @@ def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(out) as data:
         return data["rad"], int(data["seg"])
+
+
+def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
+    """``wave_jax_without_fma`` of the cover scene."""
+    return wave_jax_without_fma(
+        tmp_path, f"rt.load_and_build({COVER!r})", width=width, spp=spp,
+        depth=depth, seed=seed,
+    )
 
 
 def close_share(a, b) -> float:
