@@ -35,8 +35,10 @@ _ARGTYPES = {
     "regen": {
         "rt_regen_launch": [
             _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
+            _c_int, _c_ptr, _c_ptr,                    # sph_two_level, sph_ord, sph_bnd
             _c_ptr, _c_int, _c_int, _c_int,            # tex, tex_rows, kh, kw
             _c_ptr, _c_int, _c_int,                    # tri, m_pad, tri_mode
+            _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # done_in, done_out, rad, segments
             ctypes.POINTER(ctypes.c_float),            # camera (host, 20 floats)
             _c_int, _c_int, _c_int, _c_int,            # num_slots, slot_base, map_param, tiled

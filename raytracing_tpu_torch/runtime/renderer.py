@@ -115,7 +115,10 @@ class Renderer:
         self._cam_host = rcamera.derive(camera_params).as_vector()
         self.seed = int(seed)
         self.max_rays_per_batch = int(max_rays_per_batch)
-        self._tables = rtrace.pack_scene(self.scene)
+        # Cull blocks are visited front to back from the camera center.
+        self._tables = rtrace.pack_scene(
+            self.scene, origin=self._cam_host[9:12]
+        )
         self._samples_done = 0
         self._segments = 0
         self._pending_segments: list[torch.Tensor] = []

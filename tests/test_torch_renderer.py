@@ -173,15 +173,15 @@ def test_profile_tool_bound_counts_only_real_rows():
     assert (tables.n_pad, tables.n_actual) == (128, 5)
     b = pr.bound(tables, seg, 1024)
     assert b["fp32_ops"] == seg * (pr.SEGMENT_OPS + 5 * pr.SPHERE_PAIR_OPS)
-    # Two-level rule: the real triangles plus one re-swept window, not the
-    # 2048 padded rows.
+    # Two-level rule, unculled tables: the real triangles plus one
+    # re-swept window, not the 2048 padded rows.
     _, scene = pr.build("mesh:3", 64, 1, 1)
-    tables = ttrace.pack_scene(scene)
+    tables = ttrace.pack_scene(scene, cull=False)
     assert (tables.m_pad, tables.m_actual, tables.n_actual) == (2048, 1280, 3)
     b = pr.bound(tables, seg, 1024)
     assert b["fp32_ops"] == seg * (
         pr.SEGMENT_OPS + 3 * pr.SPHERE_PAIR_OPS
-        + (1280 + ttrace.TRI_WIN) * pr.TRIANGLE_PAIR_OPS + pr.TRI_EXACT_OPS
+        + (1280 + ttrace.WIN) * pr.TRIANGLE_PAIR_OPS + pr.TRI_EXACT_OPS
     )
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(b["fp32_ops"] / pr.FP32_PEAK * 1e3)

@@ -94,6 +94,48 @@ def golden_mesh_scene_jax():
     return _mesh_scene()
 
 
+def near_tie_scene_jax():
+    """(params, scene): 40 pairs of concentric fuzz-0 metal spheres in front
+    of the camera, each a red sphere of radius 0.5 around a blue one 0.1%
+    smaller, inserted first so that it keeps the lower row id after the
+    stable Morton sort; 4,100 small spheres far overhead pad the table to
+    8,192 rows. Along the primary rays the two near roots differ by about
+    1e-4 relative: the flat rule's 13 id bits (2^-10) cannot tell them
+    apart and take the inner sphere by its lower id; the two-level rule's
+    6 + 7 bits (about 2^-16) take the nearer, outer one."""
+    b = SceneBuilder()
+    for i in range(8):
+        for j in range(5):
+            c = ((i - 3.5) * 1.3, (j - 2.0) * 1.3, -6.0)
+            b.add_metallic_sphere(c, 0.5 * (1.0 - 1.0e-3), (0.2, 0.3, 0.9), 0.0)
+            b.add_metallic_sphere(c, 0.5, (0.9, 0.3, 0.2), 0.0)
+    rng = np.random.default_rng(2)
+    for p in rng.uniform(-150.0, 150.0, size=(4100, 3)):
+        b.add_lambertian_sphere((p[0], p[1] + 400.0, p[2]), 0.05,
+                                (0.5, 0.5, 0.5))
+    params = golden_params(
+        aspect_ratio=2.0, image_width=64, max_depth=4, vertical_fov=70.0,
+        lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0),
+    )
+    return params, b.build()
+
+
+def metal_cloud_scene_jax():
+    """(params, scene): the all-metal fuzz-0 scene of 600 spheres
+    (tests/test_pallas.py, larger than one sweep window: 1,024 rows) seen
+    from its middle: no RNG on any path."""
+    rng = np.random.default_rng(12)
+    b = SceneBuilder()
+    for _ in range(600):
+        b.add_metallic_sphere(rng.normal(size=3) * 8, rng.uniform(0.2, 0.6),
+                              (0.9, 0.9, 0.9), 0.0)
+    params = golden_params(
+        aspect_ratio=2.0, image_width=64, max_depth=4, vertical_fov=70.0,
+        lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0),
+    )
+    return params, b.build()
+
+
 def write_icosphere_glb(path, subdivisions=1, *, metallic=True):
     """A .glb holding one icosphere mesh (u32 indices) under a node with a
     rotation, scale and translation, and a pbr material; the glb layout of
@@ -204,13 +246,16 @@ def render_both(jscene, params, *, spp, depth, seed, order="tiled"):
 NO_FMA_FLAG = "--xla_cpu_max_isa=AVX"
 
 
-def wave_jax_without_fma(tmp_path, scene_expr: str, *, width, spp, depth, seed):
+def wave_jax_without_fma(tmp_path, scene_expr: str, *, width, spp, depth, seed,
+                         env=None):
     """``render_jax`` of the scene that the Python expression ``scene_expr``
-    builds as (params, scene) with ``rt`` (the JAX package) in scope, at
-    ``width``, in a fresh process whose XLA-CPU target has no FMA (the flag
-    is read once, when the backend starts). Returns (rad, seg)."""
+    builds as (params, scene) with ``rt`` (the JAX package) and ``np`` in
+    scope, at ``width``, in a fresh process whose XLA-CPU target has no FMA
+    (the flag is read once, when the backend starts) and whose environment
+    adds ``env`` (e.g. the JAX package's trace-time knobs). Returns (rad,
+    seg)."""
     out = tmp_path / "wave_no_fma.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
     env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
     env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
     code = (
