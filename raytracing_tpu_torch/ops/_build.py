@@ -31,19 +31,28 @@ NVCC_FLAGS = (
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
+# The scene arguments both entries of regen.cu take first.
+_SCENE_ARGS = [
+    _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
+    _c_int, _c_ptr, _c_ptr,                    # sph_two_level, sph_ord, sph_bnd
+    _c_ptr, _c_int, _c_int, _c_int,            # tex, tex_rows, kh, kw
+    _c_ptr, _c_int, _c_int,                    # tri, m_pad, tri_mode
+    _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
+    _c_int, _c_int, _c_int, _c_int,            # cull_sphere, sph_sub, tri_sub, hint
+]
 _ARGTYPES = {
     "regen": {
-        "rt_regen_launch": [
-            _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
-            _c_int, _c_ptr, _c_ptr,                    # sph_two_level, sph_ord, sph_bnd
-            _c_ptr, _c_int, _c_int, _c_int,            # tex, tex_rows, kh, kw
-            _c_ptr, _c_int, _c_int,                    # tri, m_pad, tri_mode
-            _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
+        "rt_regen_launch": _SCENE_ARGS + [
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # done_in, done_out, rad, segments
             ctypes.POINTER(ctypes.c_float),            # camera (host, 20 floats)
             _c_int, _c_int, _c_int, _c_int,            # num_slots, slot_base, map_param, tiled
             ctypes.c_uint, _c_int, _c_int, _c_int,     # seed, sample_start, spp, max_depth
             _c_int, _c_ptr,                            # t_end, stream
+        ],
+        "rt_trace_launch": _SCENE_ARGS + [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # ray_o, ray_d, rad, segments
+            _c_int, ctypes.c_uint, _c_int, _c_int,     # count, seed, tile_offset, tile_rays
+            _c_int, _c_ptr,                            # max_depth, stream
         ],
     },
 }

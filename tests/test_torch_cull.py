@@ -128,9 +128,10 @@ def test_order_bounds_matches_jax():
 
 
 def _jax_votes(order, bounds, rays, carry, *, id_mask, scaled, hint=None,
-               act=None):
-    """Per (block, 128-ray group) vote of ``_cull_gate_box`` in
-    TPU-interpret mode: the block body marks the group's carry with -1."""
+               act=None, kind="box"):
+    """Per (block, 128-ray group) vote of ``_cull_gate`` (``_cull_gate_box``
+    for the box kind) in TPU-interpret mode: the block body marks the
+    group's carry with -1."""
     nb = order.shape[0]
     g_count = rays.shape[1] // 128
     ray_in = rays.reshape(6, g_count, 128)
@@ -151,13 +152,13 @@ def _jax_votes(order, bounds, rays, carry, *, id_mask, scaled, hint=None,
             a = dx * dx + dy * dy + dz * dz
             pre = ptrace._gate_pre(
                 rows, a, dx * ox + dy * oy + dz * oz,
-                ox * ox + oy * oy + oz * oz, ptrace._T_MIN * a, "box",
+                ox * ox + oy * oy + oz * oz, ptrace._T_MIN * a, kind,
             )
             lane_act = act_ref[g:g + 1, :] > 0 if act is not None else None
             lane_hint = hint_ref[g:g + 1, :] if hint is not None else None
             for b in range(nb):
-                out = ptrace._cull_gate_box(
-                    (ord_ref, bnd_ref, lane_act, "box"), b, pre, 1,
+                out = ptrace._cull_gate(
+                    (ord_ref, bnd_ref, lane_act, kind), b, rows, pre, 1,
                     (carry_ref[g:g + 1, :],), id_mask=id_mask,
                     scaled_key=scaled,
                     body=lambda ob, kw: tuple(jnp.full_like(k, -1) for k in kw),
@@ -179,18 +180,18 @@ def _jax_votes(order, bounds, rays, carry, *, id_mask, scaled, hint=None,
 
 
 def _port_votes(order, bounds, rays, carry, *, id_mask, scaled, hint=None,
-                act=None):
+                act=None, kind="box"):
     """The any-vote per 128-ray group over the port's per-ray pass mask."""
     r = [torch.from_numpy(np.ascontiguousarray(v)) for v in rays]
     dx, dy, dz = r[3:]
     a = dx * dx + dy * dy + dz * dz
-    pre = tcull.gate_pre(r)
+    pre = tcull.gate_pre(r, kind)
     c = torch.from_numpy(carry)
     h = torch.from_numpy(hint) if hint is not None else None
     votes = []
     for v in range(order.shape[0]):
-        m = tcull.cull_gate_box(pre, torch.from_numpy(bounds[v]), a, c,
-                                id_mask, scaled_key=scaled, hint=h)
+        m = tcull.cull_gate(kind, r, pre, torch.from_numpy(bounds[v]), a, c,
+                            id_mask, scaled_key=scaled, hint=h)
         if act is not None:
             m = m & torch.from_numpy(act)
         votes.append(m.view(-1, 128).any(dim=1).numpy())

@@ -100,5 +100,9 @@ def test_sphere_rule_threshold_and_variant_names(n, rule):
     assert ttrace.kernel_variant(tables) == (
         "regen_sph2l" if rule == "2l" else "regen"
     )
+    assert ttrace.kernel_variant(tables, "trace") == (
+        "trace_sph2l" if rule == "2l" else "trace"
+    )
     assert ttrace.kernel_variant(tables) in ttrace.VARIANTS
-    assert len(set(ttrace.VARIANTS)) == 12
+    # 12 compiled variants for each of the two entries (regen, trace).
+    assert len(set(ttrace.VARIANTS)) == 24

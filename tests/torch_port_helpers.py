@@ -80,6 +80,17 @@ def golden_scene_jax():
     return b.build()
 
 
+def full_materials_scene_jax():
+    """tests/test_pallas.py's full-materials scene: lambertian ground and
+    sphere, a fuzz-0.2 metal and a glass sphere."""
+    b = SceneBuilder()
+    b.add_lambertian_sphere((0.0, -100.5, -1.0), 100.0, (0.5, 0.5, 0.5))
+    b.add_lambertian_sphere((0.0, 0.0, -1.0), 0.5, (0.7, 0.3, 0.3))
+    b.add_metallic_sphere((1.0, 0.0, -1.0), 0.5, (0.8, 0.8, 0.8), 0.2)
+    b.add_dielectric_sphere((-1.0, 0.0, -1.0), 0.5, 1.5)
+    return b.build()
+
+
 def golden_textured_scene_jax():
     """The textured golden scene of tests/test_golden.py."""
     from test_golden import _textured_scene
@@ -281,6 +292,52 @@ def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
         tmp_path, f"rt.load_and_build({COVER!r})", width=width, spp=spp,
         depth=depth, seed=seed,
     )
+
+
+def trace_jax(jscene, o, d, *, depth, seed, tile_offset=0, tile_rays=1024):
+    """The JAX package's ``trace_rays_fused`` on numpy rays (interpret
+    mode): (radiance, segments) as numpy/int."""
+    with pltpu.force_tpu_interpret_mode():
+        rad, seg = ptrace.trace_rays_fused(
+            jscene, jnp.asarray(o), jnp.asarray(d), jnp.int32(seed),
+            jnp.int32(tile_offset), depth, tile_rays=tile_rays,
+        )
+    return np.asarray(rad), int(seg)
+
+
+def trace_port(jscene, o, d, *, depth, seed, tile_offset=0, tile_rays=1024):
+    """The port's ``trace_rays_fused`` on the same scene and numpy rays."""
+    rad, seg = ttrace.trace_rays_fused(
+        to_port(jscene), torch.from_numpy(o), torch.from_numpy(d), seed,
+        tile_offset, depth, tile_rays=tile_rays,
+    )
+    return rad.numpy(), int(seg)
+
+
+def trace_jax_without_fma(tmp_path, scene_expr: str, o, d, *, depth, seed):
+    """``trace_jax`` of the scene the expression ``scene_expr`` builds (with
+    ``h``, this module, in scope) in a fresh process whose XLA-CPU target
+    has no FMA (see ``wave_jax_without_fma``). Returns (rad, seg)."""
+    rays = tmp_path / "rays.npz"
+    out = tmp_path / "trace_no_fma.npz"
+    np.savez(rays, o=o, d=d)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
+    env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
+    code = (
+        "import numpy as np, torch_port_helpers as h; "
+        f"r = np.load({str(rays)!r}); "
+        f"rad, n = h.trace_jax({scene_expr}, r['o'], r['d'], depth={depth}, "
+        f"seed={seed}); "
+        f"np.savez({str(out)!r}, rad=rad, seg=n)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out) as data:
+        return data["rad"], int(data["seg"])
 
 
 def close_share(a, b) -> float:
