@@ -3,18 +3,21 @@
 Each kernel source ``csrc/<name>.cu`` exposes a plain C interface. At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``raytracing_tpu_torch/_build/<name>-<hash>/`` (git-ignored;
-the hash covers the source and the flags, so an edited source rebuilds) and
-loaded with ``ctypes``. Nothing here runs at import time, and nothing falls
-back: a missing ``nvcc`` or a failed build raises.
+the hash covers the source, the headers it includes and the flags, so an
+edited source or header rebuilds) and loaded with ``ctypes``. Nothing here
+runs at import time, and nothing falls back: a missing ``nvcc`` or a failed
+build raises. ``build_all`` runs one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -39,6 +42,7 @@ _SCENE_ARGS = [
     _c_ptr, _c_int, _c_int,                    # tri, m_pad, tri_mode
     _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
     _c_int, _c_int, _c_int, _c_int,            # cull_sphere, sph_sub, tri_sub, hint
+    _c_int, _c_int,                            # radix_rows, radix_windows
 ]
 _ARGTYPES = {
     "regen": {
@@ -53,6 +57,13 @@ _ARGTYPES = {
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # ray_o, ray_d, rad, segments
             _c_int, ctypes.c_uint, _c_int, _c_int,     # count, seed, tile_offset, tile_rays
             _c_int, _c_ptr,                            # max_depth, stream
+        ],
+    },
+    "fetch": {
+        "rt_fetch_launch": [
+            _c_ptr, _c_int, _c_int,                    # table, n_rows, cols
+            _c_ptr, _c_int, _c_ptr,                    # sel, g, out
+            _c_int, _c_int, _c_ptr,                    # mode, iters, stream
         ],
     },
 }
@@ -77,10 +88,26 @@ def _nvcc() -> str:
     )
 
 
+def _sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header."""
+    found = [CSRC / f"{name}.cu"]
+    for src in found:
+        for inc in re.findall(r'^#include "([^"]+)"', src.read_text(),
+                              flags=re.M):
+            path = CSRC / inc
+            if path.exists() and path not in found:
+                found.append(path)
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
+    """The library's path, keyed by a hash of its source, the headers it
+    includes and the flags, so that editing any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build(name: str) -> pathlib.Path:
@@ -112,6 +139,14 @@ def build(name: str) -> pathlib.Path:
             ),
         }
     return lib
+
+
+def build_all(names) -> dict[str, pathlib.Path]:
+    """Build every kernel in ``names``, one ``nvcc`` per source, started
+    together; returns their library paths."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

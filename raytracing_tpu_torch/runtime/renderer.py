@@ -95,7 +95,10 @@ def resolve_device(device) -> torch.device:
 class Renderer:
     """Progressive batch renderer for one scene (spheres, textures,
     triangles) + camera on one device (``"cuda"``: the Hopper kernel;
-    ``"cpu"``: its plain version)."""
+    ``"cpu"``: its plain version). ``gather`` picks the kernel's winner
+    fetch route ("index", "radix" or "windows"; None: the environment's
+    ``RT_GATHER`` and ``RT_TWO_LEVEL_MXU``, read here once); every route
+    gives the same image."""
 
     def __init__(
         self,
@@ -105,8 +108,10 @@ class Renderer:
         seed: int = 0,
         device="cuda",
         max_rays_per_batch: int = 1 << 20,
+        gather: str | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        self.gather = rtrace.gather_route(gather)
         self.scene = scene.to(self.device)
         self.params = camera_params
         self.camera = rcamera.derive(camera_params, self.device)
@@ -211,6 +216,7 @@ class Renderer:
             max_depth=max_depth,
             num_slots=block,
             pixel_order="tiled",
+            gather=self.gather,
         )
         return t_ends, meta
 

@@ -314,14 +314,16 @@ def trace_port(jscene, o, d, *, depth, seed, tile_offset=0, tile_rays=1024):
     return rad.numpy(), int(seg)
 
 
-def trace_jax_without_fma(tmp_path, scene_expr: str, o, d, *, depth, seed):
+def trace_jax_without_fma(tmp_path, scene_expr: str, o, d, *, depth, seed,
+                          env=None):
     """``trace_jax`` of the scene the expression ``scene_expr`` builds (with
     ``h``, this module, in scope) in a fresh process whose XLA-CPU target
-    has no FMA (see ``wave_jax_without_fma``). Returns (rad, seg)."""
+    has no FMA (see ``wave_jax_without_fma``) and whose environment adds
+    ``env``. Returns (rad, seg)."""
     rays = tmp_path / "rays.npz"
     out = tmp_path / "trace_no_fma.npz"
     np.savez(rays, o=o, d=d)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
     env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
     env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
     code = (
