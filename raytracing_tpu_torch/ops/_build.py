@@ -66,11 +66,35 @@ _ARGTYPES = {
             _c_int, _c_int, _c_ptr,                    # mode, iters, stream
         ],
     },
+    "segment_split": {
+        "rt_segment_split_launch": [
+            _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
+            ctypes.POINTER(ctypes.c_float),            # camera (host, 20 floats)
+            ctypes.c_uint, _c_int, _c_int, _c_int,     # seed, steps, slots, variant
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # rad, hits, clocks, stream
+        ],
+    },
+    "worklist": {
+        "rt_worklist_launch": [
+            _c_ptr, _c_ptr, _c_ptr,                    # tab, rays, votes
+            _c_int, _c_int, _c_int,                    # units, reps, mode
+            _c_ptr, _c_ptr,                            # out, stream
+        ],
+    },
+    "divide": {
+        "rt_divide_launch": [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # x, num, recip, quot
+            _c_int, _c_int, _c_ptr,                    # n, mode, stream
+        ],
+    },
 }
+# Every kernel source, for build_all.
+KERNELS = tuple(_ARGTYPES)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # Per kernel: build seconds (0.0 when the library was already built) and
-# the compiler's resource report (registers, shared memory, spills).
+# the compiler's resource report (registers, shared memory, stack and
+# spills).
 build_info: dict[str, dict] = {}
 
 
@@ -135,7 +159,7 @@ def build(name: str) -> pathlib.Path:
             "seconds": secs,
             "ptxas": "\n".join(
                 ln for ln in (proc.stdout + proc.stderr).splitlines()
-                if "ptxas" in ln
+                if "ptxas" in ln or "spill" in ln
             ),
         }
     return lib

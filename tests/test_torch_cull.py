@@ -365,7 +365,7 @@ def test_triangle_gate_vote_with_hint_matches_jax():
 @pytest.mark.parametrize("name", ["kill_shot", "axis_parallel", "overflow"])
 def test_cull_keeps_sphere_keys_on_hostile_rays(monkeypatch, name, rule):
     if rule == "2l":
-        monkeypatch.setattr(ttrace, "TWO_LEVEL_MIN", 513)
+        monkeypatch.setenv("RT_TWO_LEVEL_MIN", "513")
     rng = np.random.default_rng(7)
     ts, rays = _sphere_case(name, rng)
     on, off = ttrace.pack_scene(ts), ttrace.pack_scene(ts, cull=False)

@@ -189,7 +189,7 @@ _DEPTH = 3
 def test_stage1_keys_on_hostile_rays(monkeypatch, kind, sub, rule):
     # The JAX package's hostile cull cases under both sphere rules.
     if rule == "2l":
-        monkeypatch.setattr(ttrace, "TWO_LEVEL_MIN", 513)
+        monkeypatch.setenv("RT_TWO_LEVEL_MIN", "513")
     for name in ("kill_shot", "axis_parallel", "overflow"):
         ts, rays = _sphere_case(name, np.random.default_rng(7))
         on = ttrace.pack_scene(ts, cull=kind, cull_sub=sub)

@@ -5,7 +5,8 @@ The JAX package takes the two-level rule from 8,192 sphere rows
 the window id in 6 low bits, stage 2 sweeps the winning window again with
 7-bit row ids. The flat rule at that size packs 13 id bits, so the two
 rules break near ties (roots within about 0.1%) differently. The port
-follows the JAX rule (``ops/trace.py``: ``TWO_LEVEL_MIN``, ``sphere_rule``).
+follows the JAX rule and its ``RT_TWO_LEVEL_MIN`` (``ops/trace.py``:
+``env_settings``, ``SceneTables.sphere_rule``).
 
 The JAX side runs in TPU-interpret mode. Tolerances are test_torch_slice's:
 segments within 0.1% and at least 99.9% of slots within atol 2e-4 / rtol
@@ -44,7 +45,7 @@ def test_near_tie_winners_follow_the_two_level_rule(monkeypatch):
     assert (done_t == 1).all()
     # Teeth: the flat rule at this size (the rule before the two-level
     # port) takes the inner blue spheres on most pair hits and fails.
-    monkeypatch.setattr(ttrace, "TWO_LEVEL_MIN", 1 << 30)
+    monkeypatch.setenv("RT_TWO_LEVEL_MIN", str(1 << 30))
     rad_f, _, _ = render_port(js, params, spp=1, depth=4, seed=0)
     assert close_share(rad_f, rad_j) < 0.9
     # Where the rules part, the two-level winner is the red outer sphere.
@@ -70,18 +71,18 @@ def test_stress_8192_wave_matches_jax(tmp_path):
 
 def test_forced_two_level_metal_scene_matches_jax(tmp_path, monkeypatch):
     # 600 fuzz-0 metal spheres (1,024 rows) with the two-level rule forced
-    # on both sides, as tests/test_pallas.py forces it (RT_TWO_LEVEL_MIN).
-    # No RNG on any path. Measured without FMA: segments equal, 2,047 of
-    # 2,048 slots within tolerance and 88% bit-equal (XLA-CPU's sqrt and
-    # divide round differently from torch's CPU kernels, and a grazing
-    # reflection carries that to one slot).
-    rad_j, seg_j = wave_jax_without_fma(
-        tmp_path, "h.metal_cloud_scene_jax()", width=64, spp=1, depth=4,
-        seed=0, env={"RT_TWO_LEVEL_MIN": "513"},
-    )
+    # on both sides by the environment alone, as tests/test_pallas.py
+    # forces it (RT_TWO_LEVEL_MIN). No RNG on any path. Measured without
+    # FMA: segments equal, 2,047 of 2,048 slots within tolerance and 88%
+    # bit-equal (XLA-CPU's sqrt and divide round differently from torch's
+    # CPU kernels, and a grazing reflection carries that to one slot).
     params, js = metal_cloud_scene_jax()
     rad_f, seg_f, _ = render_port(js, params, spp=1, depth=4, seed=0)
-    monkeypatch.setattr(ttrace, "TWO_LEVEL_MIN", 513)
+    monkeypatch.setenv("RT_TWO_LEVEL_MIN", "513")
+    rad_j, seg_j = wave_jax_without_fma(
+        tmp_path, "h.metal_cloud_scene_jax()", width=64, spp=1, depth=4,
+        seed=0,
+    )
     assert ttrace.pack_scene(to_port(js)).sphere_rule == "2l"
     rad_t, seg_t, _ = render_port(js, params, spp=1, depth=4, seed=0)
     assert seg_t == seg_j

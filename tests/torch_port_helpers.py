@@ -6,6 +6,8 @@ of a regeneration wave run as the JAX package's own tests run it on the CPU
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import json
 import os
 import struct
@@ -265,25 +267,15 @@ def wave_jax_without_fma(tmp_path, scene_expr: str, *, width, spp, depth, seed,
     (the flag is read once, when the backend starts) and whose environment
     adds ``env`` (e.g. the JAX package's trace-time knobs). Returns (rad,
     seg)."""
-    out = tmp_path / "wave_no_fma.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
-    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
-    env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
     code = (
-        "import dataclasses, numpy as np, raytracing_tpu as rt, "
-        "torch_port_helpers as h; "
-        f"p, s = {scene_expr}; "
-        f"p = dataclasses.replace(p, image_width={width}); "
-        f"r, n = h.render_jax(s, p, spp={spp}, depth={depth}, seed={seed}); "
-        f"np.savez({str(out)!r}, rad=r, seg=n)"
+        "import dataclasses, raytracing_tpu as rt\n"
+        f"p, s = {scene_expr}\n"
+        f"p = dataclasses.replace(p, image_width={width})\n"
+        f"r, n = h.render_jax(s, p, spp={spp}, depth={depth}, seed={seed})\n"
+        "out = {'rad': r, 'seg': np.asarray(n)}"
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=_ROOT, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(out) as data:
-        return data["rad"], int(data["seg"])
+    data = jax_arrays_without_fma(tmp_path, code, env)
+    return data["rad"], int(data["seg"])
 
 
 def cover_wave_jax_without_fma(tmp_path, *, width, spp, depth, seed):
@@ -321,27 +313,104 @@ def trace_jax_without_fma(tmp_path, scene_expr: str, o, d, *, depth, seed,
     has no FMA (see ``wave_jax_without_fma``) and whose environment adds
     ``env``. Returns (rad, seg)."""
     rays = tmp_path / "rays.npz"
-    out = tmp_path / "trace_no_fma.npz"
     np.savez(rays, o=o, d=d)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
-    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
-    env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
     code = (
-        "import numpy as np, torch_port_helpers as h; "
-        f"r = np.load({str(rays)!r}); "
+        f"r = np.load({str(rays)!r})\n"
         f"rad, n = h.trace_jax({scene_expr}, r['o'], r['d'], depth={depth}, "
-        f"seed={seed}); "
-        f"np.savez({str(out)!r}, rad=rad, seg=n)"
+        f"seed={seed})\n"
+        "out = {'rad': rad, 'seg': np.asarray(n)}"
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=_ROOT, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(out) as data:
-        return data["rad"], int(data["seg"])
+    data = jax_arrays_without_fma(tmp_path, code, env)
+    return data["rad"], int(data["seg"])
 
 
 def close_share(a, b) -> float:
     """Share of slots whose radiance agrees within ATOL/RTOL."""
     return float(np.isclose(a, b, atol=ATOL, rtol=RTOL).all(axis=1).mean())
+
+
+@functools.lru_cache(maxsize=None)
+def probe_script(name: str):
+    """The JAX package's probe script ``scripts/<name>.py``, imported by
+    path (its kernels run from the tests as they stand)."""
+    path = os.path.join(_ROOT, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_jax_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_arrays_without_fma(tmp_path, code: str, env=None) -> dict:
+    """Run ``code`` in a fresh process whose XLA-CPU target has no FMA (see
+    ``NO_FMA_FLAG``; the flag is read once, when the backend starts) and
+    whose environment adds ``env``, with this module as ``h`` and ``np``
+    in scope; ``code`` leaves a dict of numpy arrays in ``out``, which is
+    returned."""
+    path = tmp_path / "arrays_no_fma.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
+    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {NO_FMA_FLAG}".strip()
+    env["PYTHONPATH"] = os.pathsep.join([_ROOT, _TESTS])
+    script = (
+        "import numpy as np, torch_port_helpers as h\n"
+        f"{code}\n"
+        f"np.savez({str(path)!r}, **out)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=_ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+# The segment-split probe's hit camera: cover's camera looking down on the
+# spheres (ops/segment_split.py; tools/probe_segment_split.py).
+PROBE_HIT_CAMERA = dict(lookfrom=(0.0, 12.0, 0.5), lookat=(0.0, 0.0, 0.0))
+
+
+def probe_camera_params(camera: str):
+    """Cover's camera parameters ("cover"), or the probe's hit camera."""
+    params, _ = rt.load_and_build(COVER)
+    if camera == "hit":
+        params = dataclasses.replace(params, **PROBE_HIT_CAMERA)
+    return params
+
+
+def probe_camera_vector(camera: str) -> np.ndarray:
+    """The 20-float camera operand as ``probe_segment_split.main`` builds
+    it from the JAX package's derived camera."""
+    params = probe_camera_params(camera)
+    frame = rt.derive(params)
+    parts = [np.asarray(getattr(frame, n), np.float32).reshape(-1)
+             for n in _CAMERA_VECTORS[:-1]]
+    parts.append(np.asarray([params.defocus_angle, 0.0], np.float32))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def segment_probe_jax(variant: str, camera: str, *, steps: int, seed: int,
+                      tiles: int = 1) -> np.ndarray:
+    """``probe_segment_split``'s kernel (``make_kernel``) on the cover scene
+    in TPU-interpret mode, wrapped as ``run_variant`` wraps it: f32[3,
+    tiles * 1024]."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    m = probe_script("probe_segment_split")
+    _, scene = rt.load_and_build(COVER)
+    geom_h, geom_c, shade, _ = ptrace.pack_scene(scene)
+    planes = ptrace.pack_scene(scene, with_planes=6)[4]
+    fn = pl.pallas_call(
+        m.make_kernel(variant, steps, geom_h.shape[0]),
+        grid=(tiles,),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
+        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 4,
+        out_specs=pl.BlockSpec((3, 8, 128), lambda i: (0, i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((3, tiles * 8, 128), jnp.float32),
+        interpret=pltpu.InterpretParams(),
+    )
+    out = fn(jnp.full((1,), seed, jnp.int32),
+             jnp.asarray(probe_camera_vector(camera)), geom_h, geom_c, shade,
+             planes)
+    return np.asarray(out).reshape(3, -1)
