@@ -20,14 +20,14 @@
 // order (u0[2] as both lens draws first; j1 as the lens angle after), the
 // flat sweep's packed key, the shade with the probe's eta (1 / max(ior,
 // 1e-3) on front faces) and its sky. It runs the megakernel's own device
-// code (regen_core.cuh: the counter hash, camera_ray_from, SharedTable,
-// sweep_rows, mat_decode; fetch.cuh: radix_select).
+// code (regen_core.cuh: the counter hash, camera_ray_from, SharedTable
+// and stage_table, sweep_rows, mat_decode; fetch.cuh: radix_select).
 //
 // One thread owns one slot: the lane's index within its 1,024-lane tile
 // (every tile traces the same 1,024 slots, pixels x = slot % 400, y =
 // slot / 400, as the JAX probe's tiles do). The loop has a fixed trip count
-// and no exit. Each block stages the table in shared memory once, as the
-// megakernel's staged body does.
+// and no exit. Each block stages the table in shared memory once
+// (stage_table, as the megakernel's staged body does).
 //
 // Outputs: rad [3, slots] (rr, rg, and rb + ox + dx so the last ray stays
 // live), hits [slots] (steps whose key was a hit), and per warp the
@@ -74,23 +74,7 @@ segment_split(const float* __restrict__ geom_h,
               float* __restrict__ rad, int* __restrict__ hits,
               long long* __restrict__ clocks) {
   __shared__ SharedTable t;
-  for (int row = threadIdx.x; row < n_pad; row += blockDim.x) {
-    const float* gh = geom_h + 8 * row;
-    const float* gc = geom_c + 8 * row;
-    const float* sh = shade + 8 * row;
-    const int* shi = reinterpret_cast<const int*>(sh);
-    t.cx[row] = gh[0];
-    t.cy[row] = gh[1];
-    t.cz[row] = gh[2];
-    t.m2cx[row] = gc[0];
-    t.m2cy[row] = gc[1];
-    t.m2cz[row] = gc[2];
-    t.cm2[row] = gc[3];
-    t.r[row] = sh[3];
-    t.w1[row] = shi[4];
-    t.w2[row] = shi[5];
-  }
-  __syncthreads();
+  stage_table(t, geom_h, geom_c, shade, n_pad, 8);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // slots % 1024 == 0
   const int slot = i & (kTileSlots - 1);

@@ -9,9 +9,10 @@ kernel: ``ieee`` (the megakernel's ``/``), ``rn`` (``__frcp_rn``,
 ``__fdiv_rn``), ``fast`` (``__fdividef``) and ``approx``
 (``rcp.approx.f32``). Then the same on the edge set (values ``safe_inv``
 can see: its clamp 1e-30 and magnitudes near 2^-126 and 2^126), printed on
-its own line, with the count of quotients ``fast`` flushes to zero. The
-``ieee`` and ``rn`` modes must equal the plain version (``torch.reciprocal``
-and ``torch.div`` on the card) bit for bit on both sets.
+its own line, with the count of quotients ``fast`` flushes to zero, and
+on the timing set (``--large`` seeded values in [0.5, 1.5)). The ``ieee``
+and ``rn`` modes must equal the plain version (``torch.reciprocal`` and
+``torch.div`` on the card) bit for bit on all three sets.
 
 Times: the median of ``calls`` CUDA-event timings of ``loops`` back-to-back
 launches, per launch, for each mode and for ``torch.reciprocal`` plus
@@ -36,6 +37,7 @@ import torch
 
 from ..ops import divide as rdiv
 from . import profile_render
+from .probe_fetch import median_ms
 
 
 def ulp_stats(x: torch.Tensor, num: torch.Tensor, recip: torch.Tensor,
@@ -48,22 +50,15 @@ def ulp_stats(x: torch.Tensor, num: torch.Tensor, recip: torch.Tensor,
             "quot_max_ulp": float(eq.max()), "quot_mean_ulp": float(eq.mean())}
 
 
-def time_ms(fn, calls: int, loops: int) -> float:
-    """Median over ``calls`` of the CUDA-event ms of ``loops`` launches,
-    per launch."""
-    fn()
-    times = []
-    for _ in range(calls):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(loops):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / loops)
-    times.sort()
-    return times[len(times) // 2]
+SETS = ("probe", "edge", "large")
+
+
+def large_inputs(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The timing set: ``n`` divisors and numerators in [0.5, 1.5), seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    lx = (torch.rand(n, generator=gen) + 0.5).to(device)
+    ln = (torch.rand(n, generator=gen) + 0.5).to(device)
+    return lx, ln
 
 
 def bound_ms(n: int) -> float:
@@ -74,23 +69,22 @@ def bound_ms(n: int) -> float:
 
 
 def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
-    """Every mode's ulp errors and bit-equality on the probe's inputs and
-    the edge set, and the times; raises AssertionError where ``ieee`` or
-    ``rn`` differ from the plain version."""
+    """Every mode's ulp errors and bit-equality on the probe's inputs, the
+    edge set and the timing set, and the times; raises AssertionError
+    where ``ieee`` or ``rn`` differ from the plain version."""
     if not torch.cuda.is_available():
         raise RuntimeError("probe_divide measures the card: CUDA is not "
                            "available")
     dev = torch.device("cuda")
     x, num = (t.to(dev).reshape(-1).contiguous() for t in rdiv.inputs())
     ex, en = (t.to(dev) for t in rdiv.edge_inputs())
-    gen = torch.Generator(device="cpu").manual_seed(7)
-    lx = (torch.rand(large, generator=gen) + 0.5).to(dev)
-    ln = (torch.rand(large, generator=gen) + 0.5).to(dev)
+    lx, ln = large_inputs(large, dev)
     res = {"device": torch.cuda.get_device_name(0),
            "card": profile_render.card_line(), "modes": {}}
     for mode in rdiv.MODES:
         row = {}
-        for name, (a, b) in (("probe", (x, num)), ("edge", (ex, en))):
+        for name, (a, b) in (("probe", (x, num)), ("edge", (ex, en)),
+                             ("large", (lx, ln))):
             r, q = rdiv.divide(a, b, mode)
             pr, pq = rdiv.divide_reference(a, b, mode)
             torch.cuda.synchronize()
@@ -102,20 +96,21 @@ def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
                                          (q - pq).abs().max())),
                 "zeros": int((r == 0).sum() + (q == 0).sum()),
             }
-        row["ms"] = time_ms(lambda m=mode: rdiv.divide(x, num, m), calls, loops)
-        row["ms_large"] = time_ms(lambda m=mode: rdiv.divide(lx, ln, m),
-                                  calls, 5)
+        row["ms"] = median_ms(lambda m=mode: rdiv.divide(x, num, m), calls,
+                              loops)
+        row["ms_large"] = median_ms(lambda m=mode: rdiv.divide(lx, ln, m),
+                                    calls, 5)
         res["modes"][mode] = row
-        if mode in ("ieee", "rn") and not (row["probe"]["bit_equal_plain"]
-                                           and row["edge"]["bit_equal_plain"]):
+        if mode in ("ieee", "rn") and not all(
+                row[name]["bit_equal_plain"] for name in SETS):
             raise AssertionError(f"divide {mode}: differs from the plain "
                                  "version")
-    res["library_ms"] = time_ms(
+    res["library_ms"] = median_ms(
         lambda: (torch.reciprocal(x), torch.div(num, x)), calls, loops)
-    res["library_ms_large"] = time_ms(
+    res["library_ms_large"] = median_ms(
         lambda: (torch.reciprocal(lx), torch.div(ln, lx)), calls, 5)
-    res["plain_ms"] = time_ms(lambda: rdiv.divide_reference(x, num),
-                              calls, loops)
+    res["plain_ms"] = median_ms(lambda: rdiv.divide_reference(x, num),
+                                calls, loops)
     res["bound_ms"] = bound_ms(x.numel())
     res["bound_ms_large"] = bound_ms(large)
     res["elements"] = x.numel()
@@ -133,7 +128,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     res = run(args.calls, args.loops, args.large)
     for mode, row in res["modes"].items():
-        for name in ("probe", "edge"):
+        for name in SETS:
             s = row[name]
             print(f"{mode:6s} {name:5s} 1/x max ulp {s['recip_max_ulp']:.3f} "
                   f"mean {s['recip_mean_ulp']:.4f}; a/x max ulp "

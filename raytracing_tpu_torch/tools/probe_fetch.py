@@ -73,18 +73,20 @@ def first_mismatch(got, want, sel) -> dict | None:
             "want": f"{int(want[c, g]) & 0xFFFFFFFF:#010x}"}
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of one call, after a warm-up call."""
+def median_ms(fn, reps: int = 5, loops: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``loops`` back-to-back
+    calls, per call, after a warm-up call."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(loops):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / loops)
     return float(np.median(times))
 
 

@@ -52,6 +52,7 @@ from ..ops import segment_split as rseg
 from ..ops import trace as rtrace
 from ..scene import config as rconfig
 from . import profile_render
+from .probe_fetch import median_ms
 
 HIT_LOOKFROM = (0.0, 12.0, 0.5)
 HIT_LOOKAT = (0.0, 0.0, 0.0)
@@ -127,29 +128,22 @@ def _sm_span_cycles(clocks: torch.Tensor) -> float:
 def time_launch(tables, cam, variant: str, steps: int, slots: int,
                 reps: int) -> dict:
     """Median CUDA-event ms of one launch over ``reps`` calls (seeds 1000,
-    1001, ...; one warm-up call first), with the SM-span and mean warp
-    clock64() cycles of the median call, and the hit share."""
+    1001, ..., after a warm-up call with seed 999), with the SM-span and
+    mean warp clock64() cycles and the hit share of the last call."""
     dev = tables.device
     clocks = torch.empty((slots // 32, 3), dtype=torch.int64, device=dev)
-    rseg.segment_split(tables, cam, seed=999, steps=steps, slots=slots,
-                       variant=variant, clocks=clocks)
-    runs = []
-    for rep in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, hits = rseg.segment_split(tables, cam, seed=1000 + rep,
-                                     steps=steps, slots=slots,
-                                     variant=variant, clocks=clocks)
-        end.record()
-        torch.cuda.synchronize()
-        runs.append((start.elapsed_time(end), _sm_span_cycles(clocks),
-                     float((clocks[:, 1] - clocks[:, 0]).double().mean()),
-                     int(hits.sum())))
-    runs.sort()
-    ms, span, warp, nhit = runs[len(runs) // 2]
-    return {"ms": ms, "sm_span_cycles": span, "warp_cycles": warp,
-            "hit_share": nhit / max(1, steps * slots)}
+    seeds = iter(range(999, 1000 + reps))
+    hits = []
+
+    def launch():
+        hits[:] = [rseg.segment_split(tables, cam, seed=next(seeds),
+                                      steps=steps, slots=slots,
+                                      variant=variant, clocks=clocks)[1]]
+
+    ms = median_ms(launch, reps)
+    return {"ms": ms, "sm_span_cycles": _sm_span_cycles(clocks),
+            "warp_cycles": float((clocks[:, 1] - clocks[:, 0]).double().mean()),
+            "hit_share": int(hits[0].sum()) / max(1, steps * slots)}
 
 
 def probe(tables, cam, slots: int, k1: int, k2: int, reps: int) -> dict:

@@ -11,10 +11,7 @@ value of any knob; the knobs that change no bit of the image
 Every test here sets the environment alone, for both packages.
 """
 
-import json
-import os
-import subprocess
-import sys
+import importlib.util
 
 import pytest
 
@@ -32,8 +29,16 @@ from torch_port_helpers import (  # noqa: E402
     metal_cloud_scene_jax, to_port, trace_jax, trace_port,
 )
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+
+
+@pytest.fixture(scope="module")
+def mesh3():
+    """mesh:3 in the port (2,048 triangle rows) and its tables packed with
+    the default knobs."""
+    _, mesh = rt.make_world_mesh(image_width=32, subdivisions=3)
+    ts = to_port(mesh)
+    return ts, ttrace.pack_scene(ts)
 
 
 @pytest.mark.parametrize("value", [None, "0", "256", "257", "513", "1024",
@@ -66,10 +71,8 @@ def test_two_level_min_513_on_the_metal_cloud(monkeypatch):
     assert tables.sph_bounds is not None and tables.sph_bounds.shape[0] == 2
 
 
-def test_triangle_rule_follows_the_environment(monkeypatch):
-    _, mesh = rt.make_world_mesh(image_width=32, subdivisions=3)
-    ts = to_port(mesh)
-    tables = ttrace.pack_scene(ts)
+def test_triangle_rule_follows_the_environment(monkeypatch, mesh3):
+    ts, tables = mesh3
     assert (tables.m_pad, tables.tri_rule) == (2048, "2l")
     assert tables.tri_bounds is not None
     monkeypatch.setenv("RT_TWO_LEVEL_MIN", str(1 << 30))
@@ -151,37 +154,33 @@ def test_bad_value_raises_as_in_the_jax_package(monkeypatch, var, value):
     assert str(port_err.value) == str(jax_err.value)
 
 
+def _jax_import_error(monkeypatch, var: str, value: str) -> str:
+    """The message with which the JAX package's kernel module refuses
+    ``var=value`` when it is imported: a fresh copy of the module, executed
+    under the variable and kept out of ``sys.modules``."""
+    spec = importlib.util.spec_from_file_location(
+        "raytracing_tpu.ops.pallas._trace_fresh", ptrace.__file__)
+    mod = importlib.util.module_from_spec(spec)
+    monkeypatch.setenv(var, value)
+    with pytest.raises(ValueError) as err:
+        spec.loader.exec_module(mod)
+    monkeypatch.delenv(var)
+    return str(err.value)
+
+
 def test_import_time_and_sweep_knobs_raise_as_in_the_jax_package(
         monkeypatch):
     # RT_SWEEP_ROWS and RT_WIN are read when the JAX package's kernel
     # module is imported, RT_SWEEP_LOAD while a sweep is traced: their
-    # messages come from a fresh process importing the module, and from
-    # the sweep's own format.
-    cases = [("RT_SWEEP_ROWS", "100"), ("RT_WIN", "7"), ("RT_WIN", "1024")]
-    code = (
-        "import importlib, json, os, sys\n"
-        "import raytracing_tpu.ops.pallas.trace as T\n"
-        "msgs = []\n"
-        f"for var, value in {cases!r}:\n"
-        "    os.environ[var] = value\n"
-        "    try:\n"
-        "        importlib.reload(T)\n"
-        "        msgs.append(None)\n"
-        "    except ValueError as e:\n"
-        "        msgs.append(str(e))\n"
-        "    del os.environ[var]\n"
-        "print(json.dumps(msgs))\n"
-    )
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    jax_msgs = json.loads(proc.stdout.strip().splitlines()[-1])
-    for (var, value), want in zip(cases, jax_msgs):
+    # messages come from a fresh copy of the module, and from the sweep's
+    # own format.
+    for var, value in [("RT_SWEEP_ROWS", "100"), ("RT_WIN", "7"),
+                       ("RT_WIN", "1024")]:
+        want = _jax_import_error(monkeypatch, var, value)
         monkeypatch.setenv(var, value)
         with pytest.raises(ValueError) as port_err:
             ttrace.env_settings()
-        assert want is not None and str(port_err.value) == want
+        assert str(port_err.value) == want
         monkeypatch.delenv(var)
     monkeypatch.setenv("RT_SWEEP_LOAD", "wide")
     with pytest.raises(ValueError) as port_err:
@@ -196,10 +195,9 @@ def test_import_time_and_sweep_knobs_raise_as_in_the_jax_package(
     ("RT_TRI_FORM", "classic"), ("RT_SWEEP_FMA", "0"),
     ("RT_SWEEP_ROWS", "512"), ("RT_WIN", "128"),
 ])
-def test_image_invariant_knobs_leave_the_tables(monkeypatch, var, value):
-    _, mesh = rt.make_world_mesh(image_width=32, subdivisions=3)
-    ts = to_port(mesh)
-    want = ttrace.pack_scene(ts)
+def test_image_invariant_knobs_leave_the_tables(monkeypatch, mesh3, var,
+                                                value):
+    ts, want = mesh3
     monkeypatch.setenv(var, value)
     got = ttrace.pack_scene(ts)
     for name in ("geom_h", "geom_c", "shade", "tri", "tri_order",
