@@ -87,6 +87,23 @@ _ARGTYPES = {
             _c_int, _c_int, _c_ptr,                    # n, mode, stream
         ],
     },
+    "dtype": {
+        "rt_dtype_bitcast_launch": [
+            _c_ptr, _c_ptr, _c_ptr,                    # x, out, halves
+            _c_int, _c_ptr,                            # words, stream
+        ],
+        "rt_dtype_rate_launch": [
+            _c_ptr, _c_ptr, _c_ptr,                    # a, b, out
+            _c_int, _c_int, _c_int, _c_ptr,            # words, mode, iters, stream
+        ],
+        "rt_dtype_steps_per_body": [],
+    },
+    "features": {
+        "rt_features_launch": [
+            _c_ptr, _c_ptr, _c_ptr,                    # a, b, out
+            _c_int, _c_int, _c_ptr,                    # units, mode, stream
+        ],
+    },
 }
 # Every kernel source, for build_all.
 KERNELS = tuple(_ARGTYPES)

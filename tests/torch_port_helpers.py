@@ -329,6 +329,17 @@ def close_share(a, b) -> float:
     return float(np.isclose(a, b, atol=ATOL, rtol=RTOL).all(axis=1).mean())
 
 
+def bits(x) -> np.ndarray:
+    """The raw bits of a torch tensor or a JAX / numpy array, as int16 or
+    int32 numpy (2- or 4-byte elements), for bit-for-bit comparisons."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        return x.view(torch.int16 if x.element_size() == 2
+                      else torch.int32).numpy()
+    x = np.asarray(x)
+    return x.view(np.int16 if x.itemsize == 2 else np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def probe_script(name: str):
     """The JAX package's probe script ``scripts/<name>.py``, imported by
@@ -414,3 +425,57 @@ def segment_probe_jax(variant: str, camera: str, *, steps: int, seed: int,
              jnp.asarray(probe_camera_vector(camera)), geom_h, geom_c, shade,
              planes)
     return np.asarray(out).reshape(3, -1)
+
+
+class _Interpret:
+    """A stand-in for a probe script's ``pl`` whose ``pallas_call`` runs in
+    TPU-interpret mode and keeps the callable it built."""
+
+    def __init__(self, pl):
+        self._pl = pl
+        self.built = None
+
+    def __getattr__(self, name):
+        return getattr(self._pl, name)
+
+    def pallas_call(self, kernel, **kw):
+        kw["interpret"] = pltpu.InterpretParams()
+        self.built = self._pl.pallas_call(kernel, **kw)
+        return self.built
+
+
+class _Built(Exception):
+    pass
+
+
+class _NoJit:
+    """A stand-in for a probe script's ``jax`` whose ``jit`` stops the
+    probe right after its kernel is built."""
+
+    def __init__(self, jax_mod):
+        self._jax = jax_mod
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def jit(self, fn):
+        raise _Built
+
+
+def rate_probe_kernel(mod, dtype, op: str, iters: int):
+    """The kernel that ``scripts/probe_dtype.py``'s ``rate_probe(dtype, op,
+    iters)`` builds, in TPU-interpret mode: the probe runs as it stands up
+    to its ``jax.jit`` (it times the kernel under jit and never returns
+    its output), and the ``pallas_call`` it made is returned to be called
+    on any ``(a, b)`` of its tile's shape."""
+    saved_pl, saved_jax = mod.pl, mod.jax
+    mod.pl, mod.jax = _Interpret(saved_pl), _NoJit(saved_jax)
+    try:
+        mod.rate_probe(dtype, op, iters=iters)
+    except _Built:
+        pass
+    finally:
+        built = mod.pl.built
+        mod.pl, mod.jax = saved_pl, saved_jax
+    assert built is not None, "rate_probe built no pallas_call"
+    return built
