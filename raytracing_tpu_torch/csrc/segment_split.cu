@@ -11,7 +11,7 @@
 //   1 nogather    the winner's columns made from its row id (no fetch);
 //   2 nosweep     the key made from dy's bits (no sweep, no fetch);
 //   3 base        the same code as nosweep (the JAX probe has both names);
-//   4 full_radix  full, with the winner fetched by the radix tournament
+//   4 full_radix  full, with the winner fetched by the radix exchange
 //                 (fetch.cuh, the RT_GATHER=radix route) in place of the
 //                 indexed load: the same words, so the same bits as full.
 //

@@ -63,8 +63,14 @@ _ARGTYPES = {
         "rt_fetch_launch": [
             _c_ptr, _c_int, _c_int,                    # table, n_rows, cols
             _c_ptr, _c_int, _c_ptr,                    # sel, g, out
-            _c_int, _c_int, _c_ptr,                    # mode, iters, stream
+            _c_int, _c_int, _c_ptr, _c_ptr,            # mode, iters, planes, stream
         ],
+        "rt_fetch_planes_launch": [
+            _c_ptr, _c_int, _c_int,                    # table, n_rows, cols
+            _c_ptr, _c_ptr,                            # planes, stream
+        ],
+        "rt_fetch_plane_streams": [_c_int, _c_int],    # n_rows, cols
+        "rt_fetch_sweep_rows": [],
     },
     "segment_split": {
         "rt_segment_split_launch": [
@@ -142,27 +148,36 @@ def _sources(name: str) -> list[pathlib.Path]:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
+def _flags(defines=()) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> pathlib.Path:
     """The library's path, keyed by a hash of its source, the headers it
-    includes and the flags, so that editing any of them rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    includes and the flags (``defines`` are extra ``-D`` macros), so that
+    editing any of them rebuilds."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in _sources(name):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this exact source
-    exists; returns its path. Concurrent builders serialize on a lock."""
-    lib = library_path(name)
+def build(name: str, defines=()) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless the library for this exact source exists; returns its path.
+    Concurrent builders serialize on a lock. ``build_info`` keys a build
+    with defines as ``name[D1,D2]``."""
+    lib = library_path(name, defines)
+    key = f"{name}[{','.join(defines)}]" if defines else name
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / "build.lock", "a+") as lock:
         fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
         if lib.exists():
-            build_info.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+            build_info.setdefault(key, {"seconds": 0.0, "ptxas": ""})
             return lib
         tmp = lib.with_suffix(".so.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         secs = time.perf_counter() - t0
@@ -172,7 +187,7 @@ def build(name: str) -> pathlib.Path:
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, lib)
-        build_info[name] = {
+        build_info[key] = {
             "seconds": secs,
             "ptxas": "\n".join(
                 ln for ln in (proc.stdout + proc.stderr).splitlines()
@@ -182,12 +197,30 @@ def build(name: str) -> pathlib.Path:
     return lib
 
 
-def build_all(names) -> dict[str, pathlib.Path]:
-    """Build every kernel in ``names``, one ``nvcc`` per source, started
-    together; returns their library paths."""
-    names = list(names)
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        return dict(zip(names, pool.map(build, names)))
+def build_all(names, variants=()) -> dict[str, pathlib.Path]:
+    """Build every kernel in ``names``, and each ``(name, defines)`` of
+    ``variants``, one ``nvcc`` per library, started together; returns
+    their library paths by ``build_info`` key."""
+    jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = pool.map(lambda job: build(*job), jobs)
+        return {f"{n}[{','.join(d)}]" if d else n: path
+                for (n, d), path in zip(jobs, paths)}
+
+
+def registers(key: str) -> dict[str, int]:
+    """Registers per compiled kernel (mangled name) of a library built in
+    this process, from the compiler's report in ``build_info[key]``."""
+    regs, entry = {}, None
+    for line in build_info[key]["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+            entry = None
+    return regs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,8 +4,9 @@ Counterpart of the JAX package's radix winner fetch
 (``raytracing_tpu/ops/pallas/trace.py``: ``_fold_half``, ``_fold8``,
 ``_fold_to_row``, ``_gather_cols``, ``_gather``, and the window collapse
 ``_collapse_window_blocked``) and of its one-hot matrix-unit fetch
-(``_gather_mxu``, ``_collapse_window_mxu``), which ``RT_GATHER`` and
-``RT_TWO_LEVEL_MXU`` choose between.
+(``_gather_mxu``, ``_collapse_window_mxu``, on the planes of
+``_plane_table_int``), which ``RT_GATHER`` and ``RT_TWO_LEVEL_MXU`` choose
+between.
 
 * ``env_settings`` reads those two variables exactly as the JAX package
   reads them (neither is validated there, so none is here), and
@@ -15,16 +16,23 @@ Counterpart of the JAX package's radix winner fetch
   ``radix_windows`` (the two-level stage-2 windows of spheres and
   triangles, and the two-level winners folded out of them).
 * ``fetch_rows_reference`` is the plain PyTorch version in three modes:
-  ``"index"`` (``table[sel]``), ``"radix"`` (the literal halving
+  ``"index"`` (``table[sel]``), ``"radix"`` (the JAX package's halving
   tournament on int32 words, ``torch.where`` on ``sel``'s bits, as
-  ``_fold_half`` / ``_fold8`` do) and ``"onehot"`` (float32 byte planes
-  times a one-hot matrix, rebuilt with integer ops, as ``_gather_mxu``
-  does). The plain megakernel (``ops/trace.py``) calls it at its fetch
-  sites when the route flags are set.
+  ``_fold_half`` / ``_fold8`` do) and ``"onehot"`` (the byte planes of
+  ``plane_table_reference`` times a one-hot matrix, rebuilt with integer
+  ops, as ``_gather_mxu`` does). The plain megakernel (``ops/trace.py``)
+  calls it at its fetch sites when the route flags are set.
+* ``exchange_reference`` models the card's radix fetch
+  (``csrc/fetch.cuh``): the lanes of a warp that reach the fetch together
+  walk the table in chunks of as many rows as they are, each reading the
+  row of its rank, and take each word from the lane of rank ``sel - i0``.
+  ``plane_table_reference`` is the one-hot mode's bf16 planes and
+  ``plane_tiles_reference`` their layout in the prepass's scratch (the
+  K-major core matrices ``wgmma`` reads).
 * ``fetch_rows`` is the standalone fetch of ``csrc/fetch.cu`` (the
   counterpart of the JAX package's fetch test kernel and fetch probes) on
   CUDA tensors, and of ``fetch_loop_reference`` on CPU tensors; it raises
-  on anything else.
+  on anything else. ``fetch_planes`` is its one-hot prepass.
 
 Packed words stay int32 end to end: the gray albedo word 0x80008000 is a
 subnormal float32 pattern and the white dielectric word 0xFFFFFFFF a NaN,
@@ -48,9 +56,19 @@ _WINDOW_ROWS = 512
 _ELEMS = 1 << 24
 # Columns the fetch kernel takes (its radix mode is compiled per count).
 MAX_COLS = 16
+# The one-hot planes' least row count (csrc/fetch.cu: kOhKAlign), which
+# the plain prepass pads to.
+_PLANE_ROWS = 128
 
-# Launches of csrc/fetch.cu per mode (``fetch_rows``).
-launch_counts = {f"fetch_{m}": 0 for m in MODES}
+# Lanes of a warp, the radix exchange's largest group, and the largest
+# table the exchange's model sweeps instead (csrc/fetch.cuh: kSweepRows;
+# ``kernel_sweep_rows`` reads the built kernel's).
+WARP = 32
+SWEEP_ROWS = 4
+
+# Launches of csrc/fetch.cu per mode (``fetch_rows``), and of the one-hot
+# mode's plane prepass (``fetch_planes``).
+launch_counts = {**{f"fetch_{m}": 0 for m in MODES}, "fetch_planes": 0}
 
 
 def reset_launch_counts() -> None:
@@ -146,21 +164,130 @@ def _radix(words: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return _fold_to_row(t, sel)
 
 
-def _onehot(words: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """``_gather_mxu`` on one chunk of lanes: float32 byte planes [4C, N]
-    (row 4c + k = byte k of column c, exact in bf16) times the one-hot
-    [N, lanes] matrix (one nonzero product per sum), each word rebuilt as
-    ``((p3*256 + p2) << 16) | (p1*256 + p0)`` in int32."""
+def plane_shape(n_rows: int, cols: int) -> tuple[int, int]:
+    """(K, N) of the one-hot mode's planes: the table's rows (a power of
+    two) rounded up to 128, two batches of four 16-row ``wgmma`` steps, and
+    4 byte planes a column rounded up to 8."""
+    return max(_PLANE_ROWS, n_rows), -(-4 * cols // 8) * 8
+
+
+def plane_streams(n_rows: int, cols: int) -> bool:
+    """Whether the built one-hot kernel streams the planes of an ``n_rows``
+    x ``cols`` table through shared memory in chunks (TMA), rather than
+    holding them resident: the launcher's own choice
+    (``rt_fetch_plane_streams``)."""
+    from . import _build
+
+    return bool(_build.load("fetch").rt_fetch_plane_streams(n_rows, cols))
+
+
+def kernel_sweep_rows() -> int:
+    """The largest table the built radix modes sweep rather than exchange
+    (``kSweepRows`` of ``csrc/fetch.cuh``), for checks that
+    ``SWEEP_ROWS`` models the kernel."""
+    from . import _build
+
+    return int(_build.load("fetch").rt_fetch_sweep_rows())
+
+
+def plane_table_reference(words: torch.Tensor) -> torch.Tensor:
+    """The bf16 byte planes [N_rows, N] of int32 words [N_rows, C]: column
+    4c + k holds byte k (0..255, exact in bf16) of column c, columns past
+    4C are 0. The transpose of ``_plane_table_int``'s f32 (pad8(4C),
+    N_rows), padded as it pads."""
     n, c = words.shape
     planes = torch.stack([(words >> (8 * k)) & 0xFF for k in range(4)],
-                         dim=-1)  # [N, C, 4]
-    planes = planes.reshape(n, 4 * c).t().to(torch.float32)
-    iota = torch.arange(n, device=words.device)
+                         dim=-1).reshape(n, 4 * c)
+    pad = plane_shape(n, c)[1] - 4 * c
+    if pad:
+        planes = torch.cat([planes, planes.new_zeros((n, pad))], dim=1)
+    return planes.to(torch.bfloat16)
+
+
+def plane_tiles_reference(planes: torch.Tensor) -> torch.Tensor:
+    """The prepass's scratch (``csrc/fetch.cu``: ``fetch_planes``) as int16
+    [K * N]: ``planes`` [N_rows, N] bf16 padded with zero rows to K, cut
+    into 8 x 8 core matrices, core (k // 8, n // 8) at ((k // 8) * N / 8 +
+    n // 8) * 64, its row n % 8 at stride 8 and k % 8 within."""
+    n, width = planes.shape
+    k_pad = plane_shape(n, width // 4)[0]
+    bits = planes.view(torch.int16)
+    if k_pad > n:
+        bits = torch.cat([bits, bits.new_zeros((k_pad - n, width))])
+    tiles = bits.reshape(k_pad // 8, 8, width // 8, 8).permute(0, 2, 3, 1)
+    return tiles.reshape(-1).contiguous()
+
+
+def onehot_product_reference(planes: torch.Tensor, sel: torch.Tensor,
+                             cols: int) -> torch.Tensor:
+    """``_gather_mxu`` over bf16 planes [N_rows, N]: the f32 planes times
+    the one-hot [N_rows, lanes] matrix (one nonzero product per sum), each
+    word rebuilt as ``((p3*256 + p2) << 16) | (p1*256 + p0)`` in int32;
+    returns [lanes, cols]."""
+    n = planes.shape[0]
+    t = planes[:, :4 * cols].t().to(torch.float32)
+    iota = torch.arange(n, device=planes.device)
     onehot = (iota[:, None] == sel[None, :]).to(torch.float32)
-    p = torch.matmul(planes, onehot).view(c, 4, -1)
+    p = torch.matmul(t, onehot).view(cols, 4, -1)
     hi = (p[:, 3] * 256.0 + p[:, 2]).to(torch.int32)
     lo = (p[:, 1] * 256.0 + p[:, 0]).to(torch.int32)
     return ((hi << 16) | lo).t()
+
+
+def _onehot(words: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``_gather_mxu`` on one chunk of lanes, over the table's planes."""
+    return onehot_product_reference(plane_table_reference(words), sel,
+                                     words.shape[1])
+
+
+def exchange_reference(words: torch.Tensor, sel: torch.Tensor,
+                       active: torch.Tensor | None = None) -> torch.Tensor:
+    """The card's radix fetch (``csrc/fetch.cuh``: ``radix_select``), step
+    by step: lanes are cut into warps of 32 (the last may be ragged), and
+    a warp's ``active`` lanes (all lanes when None) form its group. With m
+    lanes in the group and r a lane's rank among them, the group walks the
+    table in chunks of m rows: at chunk i0 the lane of rank r reads row
+    min(i0 + r, N - 1), and every lane whose ``sel`` lies in [i0, i0 + m)
+    takes that row's words from the lane of rank ``sel - i0``. Tables of
+    at most ``SWEEP_ROWS`` rows are swept instead: every lane reads every
+    row and keeps its own. Returns int32 [lanes, C]; inactive lanes, and
+    lanes whose ``sel`` lies outside [0, N), get 0 (the kernel writes
+    nothing for the former and keeps nothing for the latter)."""
+    words = _words(words)
+    n, c = words.shape
+    lanes = sel.numel()
+    if active is None:
+        active = torch.ones(lanes, dtype=torch.bool)
+    if n <= SWEEP_ROWS:
+        out = torch.zeros((lanes, c), dtype=torch.int32, device=words.device)
+        take = active.to(words.device)
+        for i in range(n):
+            out = torch.where(((sel.to(words.device) == i) & take)[:, None],
+                              words[i], out)
+        return out
+    nw = -(-lanes // WARP)
+    pad = nw * WARP - lanes
+    act = torch.cat([active.bool().cpu(), torch.zeros(pad, dtype=torch.bool)])
+    act = act.view(nw, WARP).to(words.device)
+    s = torch.cat([sel.long().cpu(), torch.zeros(pad, dtype=torch.long)])
+    s = s.view(nw, WARP).to(words.device)
+    m = act.sum(dim=1)                                   # group sizes [W]
+    rank = torch.cumsum(act.long(), dim=1) - 1           # [W, 32]
+    # The lane of each rank: active lanes first, in lane order.
+    lane_of = torch.argsort((~act).long() * WARP
+                            + torch.arange(WARP, device=words.device), dim=1)
+    chunks = torch.where(m > 0, -(-n // m.clamp(min=1)), 0)
+    out = torch.zeros((nw, WARP, c), dtype=torch.int32, device=words.device)
+    for j in range(int(chunks.max()) if nw else 0):
+        i0 = (j * m)[:, None]
+        rows = (i0 + rank).clamp(0, n - 1)
+        read = words[rows]                               # [W, 32, C]
+        k = s - i0
+        mine = act & (j < chunks)[:, None] & (k >= 0) & (k < m[:, None])
+        src = lane_of.gather(1, k.clamp(0, WARP - 1))
+        got = read.gather(1, src[..., None].expand(-1, -1, c))
+        out = torch.where(mine[..., None], got, out)
+    return out.view(nw * WARP, c)[:lanes]
 
 
 def fetch_rows_reference(table: torch.Tensor, sel: torch.Tensor,
@@ -240,6 +367,19 @@ def fetch_loop_reference(table: torch.Tensor, sel: torch.Tensor,
     return w.t().contiguous()
 
 
+def _check_table(table: torch.Tensor) -> None:
+    if table.dtype != torch.int32 or table.dim() != 2:
+        raise TypeError(f"table must be int32 [N, C], got {table.dtype} "
+                        f"{tuple(table.shape)}")
+    n, c = table.shape
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"table rows {n} must be a power of two")
+    if not 1 <= c <= MAX_COLS:
+        raise ValueError(f"table columns {c} must be in [1, {MAX_COLS}]")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+
+
 def fetch_rows(table: torch.Tensor, sel: torch.Tensor, mode: str = "radix",
                iters: int = 1) -> torch.Tensor:
     """Fetch row ``sel[g]`` of ``table`` (int32 [N, C], N a power of two,
@@ -249,27 +389,22 @@ def fetch_rows(table: torch.Tensor, sel: torch.Tensor, mode: str = "radix",
     [C, G].
 
     CUDA tensors launch ``csrc/fetch.cu`` in ``mode``: "index" (indexed
-    loads), "radix" (the tournament on 32-bit words that ``regen.cu``'s
-    radix route runs), "radix16" (the same tournament on two 16-bit halves
-    per register, selected with ``__byte_perm``) or "onehot" (byte planes
-    times a one-hot matrix on the tensor cores, ``mma.sync`` bf16 with f32
-    accumulation); CPU tensors run ``fetch_loop_reference``."""
+    loads), "radix" (the warp exchange of ``csrc/fetch.cuh`` that
+    ``regen.cu``'s radix route runs, on 32-bit words; ``exchange_reference``
+    is its walk), "radix16" (the same exchange keeping two 16-bit halves
+    per register, selected with ``__byte_perm``) or "onehot" (the
+    ``fetch_planes`` prepass, then the planes times a one-hot matrix on the
+    tensor cores, ``wgmma`` bf16 with f32 accumulation); CPU tensors run
+    ``fetch_loop_reference``."""
     if mode not in MODES:
         raise ValueError(f"unknown fetch mode {mode!r}")
-    if table.dtype != torch.int32 or table.dim() != 2:
-        raise TypeError(f"table must be int32 [N, C], got {table.dtype} "
-                        f"{tuple(table.shape)}")
-    n, c = table.shape
-    if n < 1 or n & (n - 1):
-        raise ValueError(f"table rows {n} must be a power of two")
-    if not 1 <= c <= MAX_COLS:
-        raise ValueError(f"table columns {c} must be in [1, {MAX_COLS}]")
+    _check_table(table)
     if sel.dtype != torch.int32 or sel.dim() != 1 or sel.numel() == 0:
         raise TypeError("sel must be a non-empty int32 [G] tensor")
     if sel.device != table.device:
         raise ValueError(f"sel is on {sel.device}, table on {table.device}")
-    if not (table.is_contiguous() and sel.is_contiguous()):
-        raise ValueError("table and sel must be contiguous")
+    if not sel.is_contiguous():
+        raise ValueError("sel must be contiguous")
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
     if table.device.type == "cuda":
@@ -279,17 +414,47 @@ def fetch_rows(table: torch.Tensor, sel: torch.Tensor, mode: str = "radix",
     return fetch_loop_reference(table, sel, mode, iters)
 
 
+def fetch_planes(table: torch.Tensor) -> torch.Tensor:
+    """The one-hot mode's planes of ``table`` (int32 [N, C], N a power of
+    two, C <= 16) as the prepass writes them: int16 [K * N_planes] in
+    ``plane_tiles_reference``'s layout. CUDA tensors launch
+    ``csrc/fetch.cu``'s prepass; CPU tensors run the plain version."""
+    _check_table(table)
+    if table.device.type == "cpu":
+        return plane_tiles_reference(plane_table_reference(table))
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    from . import _build
+
+    n, c = table.shape
+    k_pad, width = plane_shape(n, c)
+    planes = torch.empty(k_pad * width, dtype=torch.int16, device=table.device)
+    lib = _build.load("fetch")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.rt_fetch_planes_launch(table.data_ptr(), n, c,
+                                         planes.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fetch plane prepass launch failed: {_build.error_string(lib, err)}"
+        )
+    launch_counts["fetch_planes"] += 1
+    return planes
+
+
 def _launch_fetch_cuda(table, sel, mode, iters):
     from . import _build
 
     n, c = table.shape
     g = sel.numel()
+    planes = fetch_planes(table) if mode == "onehot" else None
     out = torch.empty((c, g), dtype=torch.int32, device=table.device)
     lib = _build.load("fetch")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.rt_fetch_launch(table.data_ptr(), n, c, sel.data_ptr(), g,
                                   out.data_ptr(), _MODE_IDS[mode], iters,
+                                  None if planes is None else planes.data_ptr(),
                                   stream)
     if err != 0:
         raise RuntimeError(

@@ -10,11 +10,13 @@ shade tables (6 words a row) of the cover scene (512 rows) and of
   (``|w0 ^ w4| & (rows - 1)``), a fetch again;
 * ``probe_mxu_loop``: 8 fetches, each selection fed back from the words
   so far, the card against the plain version (``ops/fetch.py``);
-* ``probe_fold``: the cost of the fold, ns per fetched word for every
-  mode, the tournament on 32-bit words ("radix") against two 16-bit
-  halves per register selected with ``__byte_perm`` ("radix16"), beside
-  ``torch.index_select`` on the same selections and the least time of
-  the bytes moved.
+* ``probe_fold``: the cost of the fetch, ns per fetched word for every
+  mode (CUDA events over back-to-back calls), the warp exchange keeping
+  32-bit words ("radix") against two 16-bit halves per register selected
+  with ``__byte_perm`` ("radix16"), and the one-hot mode with its plane
+  prepass (and the prepass alone), beside ``torch.index_select`` on the
+  same selections, the least time of the bytes moved, and each mode's own
+  work bound (``work_bound_ms``).
 
 Usage (on the card; prints one JSON line per table, and the whole result
 as one JSON object last)::
@@ -39,7 +41,17 @@ from ..scene import config as rconfig
 COVER = "data/config/world.config.json"
 MODES = ("index", "radix", "radix16", "onehot")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores, same sheet
+# Warp shuffles a SM retires per cycle (32 lanes: the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0), the
+# card's SMs and its largest SM clock.
+SHFL_PER_SM_CYCLE = 1
+SMS = 132
+SM_HZ = 1.98e9
 LOOP_ITERS = 8
+# Back-to-back calls a timing covers, so that the host's launch work
+# overlaps the card's.
+TIMING_LOOPS = 20
 
 
 def tables(device) -> dict[str, torch.Tensor]:
@@ -96,6 +108,27 @@ def bound_ms(rows: int, cols: int, lanes: int) -> float:
     return (4 * lanes + 4 * cols * lanes + 4 * rows * cols) / HBM_BYTES_PER_S * 1e3
 
 
+def planes_bound_ms(rows: int, cols: int) -> float:
+    """Least time of the plane prepass: the table read once and the
+    planes written once, over the card's memory rate."""
+    k_pad, width = rfetch.plane_shape(rows, cols)
+    return (4 * rows * cols + 2 * k_pad * width) / HBM_BYTES_PER_S * 1e3
+
+
+def work_bound_ms(mode: str, rows: int, cols: int, lanes: int) -> float:
+    """Least time of a mode's own work on these inputs: the one-hot
+    product's FLOP (2 per lane, table row and byte plane) over the tensor
+    cores' bf16 rate; the exchange's warp shuffles (one per word, chunk of
+    32 rows and warp) over the SMs' shuffle rate; 0 for the indexed load,
+    whose work is its bytes."""
+    if mode == "onehot":
+        return 2 * lanes * rows * 4 * cols / BF16_TENSOR_FLOPS * 1e3
+    if mode in ("radix", "radix16"):
+        shuffles = -(-lanes // 32) * -(-rows // 32) * cols
+        return shuffles / (SHFL_PER_SM_CYCLE * SMS * SM_HZ) * 1e3
+    return 0.0
+
+
 def probe_table(name: str, table: torch.Tensor, lanes: int, reps: int,
                 plain_lanes: int) -> dict:
     rows, cols = table.shape
@@ -143,9 +176,15 @@ def probe_table(name: str, table: torch.Tensor, lanes: int, reps: int,
     timing = {}
     words = lanes * cols
     for mode in MODES:
-        ms = median_ms(lambda m=mode: rfetch.fetch_rows(table, sel, m), reps)
-        timing[mode] = {"ms": ms, "ns_per_word": ms * 1e6 / words}
-    lib = median_ms(lambda: torch.index_select(table, 0, sel), reps)
+        ms = median_ms(lambda m=mode: rfetch.fetch_rows(table, sel, m), reps,
+                       TIMING_LOOPS)
+        timing[mode] = {"ms": ms, "ns_per_word": ms * 1e6 / words,
+                        "work_bound_ms": work_bound_ms(mode, rows, cols,
+                                                       lanes)}
+    ms = median_ms(lambda: rfetch.fetch_planes(table), reps, TIMING_LOOPS)
+    timing["planes"] = {"ms": ms, "bound_ms": planes_bound_ms(rows, cols)}
+    lib = median_ms(lambda: torch.index_select(table, 0, sel), reps,
+                    TIMING_LOOPS)
     timing["index_select"] = {"ms": lib, "ns_per_word": lib * 1e6 / words}
     res["timing"] = timing
     res["bound_ms"] = bound_ms(rows, cols, lanes)
@@ -156,15 +195,19 @@ def probe_table(name: str, table: torch.Tensor, lanes: int, reps: int,
 
 def plain_times(table: torch.Tensor, lanes: int) -> dict:
     """The plain version's time (ms, host clock around a synchronized
-    call) of each mode on ``lanes`` selections of ``table``."""
+    call) of each mode on ``lanes`` selections of ``table``, and of the
+    plane prepass's (``planes``)."""
     import time
 
     sel = selections(table.shape[0], lanes, table.device)
     out = {}
-    for mode in ("index", "radix", "onehot"):
+    for mode in ("index", "radix", "onehot", "planes"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rfetch.fetch_loop_reference(table, sel, mode)
+        if mode == "planes":
+            rfetch.plane_tiles_reference(rfetch.plane_table_reference(table))
+        else:
+            rfetch.fetch_loop_reference(table, sel, mode)
         torch.cuda.synchronize()
         out[mode] = (time.perf_counter() - t0) * 1e3
     return out
