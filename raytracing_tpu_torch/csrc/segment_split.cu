@@ -21,7 +21,9 @@
 // flat sweep's packed key, the shade with the probe's eta (1 / max(ior,
 // 1e-3) on front faces) and its sky. It runs the megakernel's own device
 // code (regen_core.cuh: the counter hash, camera_ray_from, SharedTable
-// and stage_table, sweep_rows, mat_decode; fetch.cuh: radix_select).
+// and stage_table, sweep_rows with its miss select and four-row trips,
+// mat_decode; fetch.cuh: radix_select), so its cycles a segment are the
+// megakernel's sweep's.
 //
 // One thread owns one slot: the lane's index within its 1,024-lane tile
 // (every tile traces the same 1,024 slots, pixels x = slot % 400, y =
@@ -37,8 +39,9 @@
 // What bounds it on this card: FP32 work. A segment of `full` is about
 // 19 FP32 operations per table row (the sweep) plus about 240 for the shade
 // and the camera, against a few hundred bytes of inputs per call. The
-// design keeps the table in shared memory (every lane of a warp reads the
-// same row: a broadcast) and the ray state in registers.
+// design keeps the table in shared memory sized to it (every lane of a
+// warp reads the same row: two 16-byte broadcasts) and the ray state in
+// registers.
 //
 // rt_segment_split_launch launches on the given stream and returns
 // cudaGetLastError().
@@ -73,7 +76,8 @@ segment_split(const float* __restrict__ geom_h,
               Camera cam, uint32_t seed, int steps, int slots,
               float* __restrict__ rad, int* __restrict__ hits,
               long long* __restrict__ clocks) {
-  __shared__ SharedTable t;
+  extern __shared__ __align__(16) unsigned char staged_smem[];
+  const SharedTable t = shared_table(staged_smem, n_pad);
   stage_table(t, geom_h, geom_c, shade, n_pad, 8);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // slots % 1024 == 0
@@ -106,7 +110,7 @@ segment_split(const float* __restrict__ geom_h,
     if constexpr (kVariant == kNoSweep || kVariant == kBase) {
       kmin = __float_as_int(dy);  // (kb & ~mask) | (kb & mask)
     } else {
-      kmin = sweep_rows(t, 0, n_pad, 0, pack_mask, s, nohit);
+      kmin = sweep_rows<true>(t.rows, n_pad, 0, pack_mask, s, nohit);
     }
     const bool hitm = kmin < nohit;
     const int imin = kmin & pack_mask;
@@ -116,9 +120,9 @@ segment_split(const float* __restrict__ geom_h,
     if constexpr (kVariant == kFull || kVariant == kFullRadix) {
       int w1, w2;
       if constexpr (kVariant == kFull) {
-        cxb = t.cx[imin];
-        cyb = t.cy[imin];
-        czb = t.cz[imin];
+        cxb = t.rows[imin].h.x;
+        cyb = t.rows[imin].h.y;
+        czb = t.rows[imin].h.z;
         rb_ = t.r[imin];
         w1 = t.w1[imin];
         w2 = t.w2[imin];
@@ -126,9 +130,9 @@ segment_split(const float* __restrict__ geom_h,
         // A column group at a time, as the megakernel's staged body does.
         const rtfetch::Words<3> g0 = rtfetch::radix_select<3>(
             n_pad, imin, [&](int j) {
-              return rtfetch::Words<3>{{__float_as_int(t.cx[j]),
-                                        __float_as_int(t.cy[j]),
-                                        __float_as_int(t.cz[j])}};
+              return rtfetch::Words<3>{{__float_as_int(t.rows[j].h.x),
+                                        __float_as_int(t.rows[j].h.y),
+                                        __float_as_int(t.rows[j].h.z)}};
             });
         const rtfetch::Words<3> g1 = rtfetch::radix_select<3>(
             n_pad, imin, [&](int j) {
@@ -294,7 +298,8 @@ template <int kVariant>
 int launch(const float* gh, const float* gc, const float* sh, int n_pad,
            const Camera& cam, uint32_t seed, int steps, int slots, float* rad,
            int* hits, long long* clocks, cudaStream_t s) {
-  segment_split<kVariant><<<slots / kThreads, kThreads, 0, s>>>(
+  segment_split<kVariant><<<slots / kThreads, kThreads, staged_bytes(n_pad),
+                            s>>>(
       gh, gc, sh, n_pad, (1 << pack_bits(n_pad)) - 1, cam, seed, steps,
       slots, rad, hits, clocks);
   return (int)cudaGetLastError();

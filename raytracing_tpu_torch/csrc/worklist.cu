@@ -27,8 +27,9 @@
 //                their running minima sit in shared memory. Same result as
 //                conds.
 //
-// Each visited block's 7 columns are staged in shared memory; every lane
-// of a warp reads the same row at the same time (a broadcast).
+// Each visited block's 7 columns are staged in shared memory as sweep rows;
+// every lane of a warp reads the same row at the same time (two 16-byte
+// broadcasts).
 //
 // What bounds it on this card: FP32 work, 19 operations per (ray, row)
 // pair swept, against 112 KB of table and 24 KB of rays per unit. The
@@ -55,11 +56,10 @@ constexpr int kItems = kGroups * (kLanes / 32);
 
 enum Mode { kStatic = 0, kConds = 1, kWorklist = 2 };
 
-// One staged block of the sweep columns (sweep_rows reads these names).
+// One staged block of sweep rows (regen_core.cuh's SweepRow: cx, cy, cz,
+// -, then -2cx, -2cy, -2cz, cm2).
 struct BlockTable {
-  float cx[kBlk], cy[kBlk], cz[kBlk];
-  float m2cx[kBlk], m2cy[kBlk], m2cz[kBlk];
-  float cm2[kBlk];
+  SweepRow rows[kBlk];
 };
 
 __device__ __forceinline__ Ray ray_of(const float (*comp)[kUnit], int r) {
@@ -110,16 +110,9 @@ worklist(const float* __restrict__ tab, const float* __restrict__ rays,
       const float* src = tab + (size_t)b * kBlk * 7;
       for (int e = t; e < kBlk * 7; e += kUnit) {
         const int row = e / 7;
-        const float v = src[e];
-        switch (e - row * 7) {
-          case 0: bt.cx[row] = v; break;
-          case 1: bt.cy[row] = v; break;
-          case 2: bt.cz[row] = v; break;
-          case 3: bt.m2cx[row] = v; break;
-          case 4: bt.m2cy[row] = v; break;
-          case 5: bt.m2cz[row] = v; break;
-          default: bt.cm2[row] = v; break;
-        }
+        const int col = e - row * 7;
+        reinterpret_cast<float*>(&bt.rows[row])[col < 3 ? col : col + 1] =
+            src[e];
       }
       if constexpr (kMode == kWorklist) {
         if (t == 0) {
@@ -135,9 +128,11 @@ worklist(const float* __restrict__ tab, const float* __restrict__ rays,
       }
       __syncthreads();
       if constexpr (kMode == kStatic) {
-        carry = sweep_rows(bt, 0, kBlk, 0, kBlk - 1, s, carry);
+        carry = sweep_rows<true>(bt.rows, kBlk, 0, kBlk - 1, s, carry);
       } else if constexpr (kMode == kConds) {
-        if (vote) carry = sweep_rows(bt, 0, kBlk, 0, kBlk - 1, s, carry);
+        if (vote) {
+          carry = sweep_rows<true>(bt.rows, kBlk, 0, kBlk - 1, s, carry);
+        }
       } else {
         for (;;) {
           int it = 0;
@@ -146,8 +141,9 @@ worklist(const float* __restrict__ tab, const float* __restrict__ rays,
           if (it >= n_items) break;
           const int gq = items[it];
           const int r = (gq >> 2) * kLanes + (gq & 3) * 32 + lane;
-          carry_s[r] = sweep_rows(bt, 0, kBlk, 0, kBlk - 1,
-                                  sweep_ray(ray_of(comp, r)), carry_s[r]);
+          carry_s[r] = sweep_rows<true>(bt.rows, kBlk, 0, kBlk - 1,
+                                        sweep_ray(ray_of(comp, r)),
+                                        carry_s[r]);
         }
       }
     }

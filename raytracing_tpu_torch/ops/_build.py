@@ -12,6 +12,7 @@ build raises. ``build_all`` runs one ``nvcc`` per source, all at once.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -57,6 +58,13 @@ _ARGTYPES = {
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # ray_o, ray_d, rad, segments
             _c_int, ctypes.c_uint, _c_int, _c_int,     # count, seed, tile_offset, tile_rays
             _c_int, _c_ptr,                            # max_depth, stream
+        ],
+        "rt_regen_occupancy": _SCENE_ARGS + [
+            _c_int, ctypes.POINTER(ctypes.c_int),      # entry, blocks (out)
+        ],
+        "rt_sweep_root_launch": [
+            ctypes.c_uint, _c_int, _c_ptr, _c_ptr,     # first, n, root, outside
+            _c_ptr,                                    # stream
         ],
     },
     "fetch": {
@@ -152,6 +160,10 @@ def _flags(defines=()) -> tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+def _key(name: str, defines=()) -> str:
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
 def library_path(name: str, defines=()) -> pathlib.Path:
     """The library's path, keyed by a hash of its source, the headers it
     includes and the flags (``defines`` are extra ``-D`` macros), so that
@@ -168,7 +180,7 @@ def build(name: str, defines=()) -> pathlib.Path:
     Concurrent builders serialize on a lock. ``build_info`` keys a build
     with defines as ``name[D1,D2]``."""
     lib = library_path(name, defines)
-    key = f"{name}[{','.join(defines)}]" if defines else name
+    key = _key(name, defines)
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / "build.lock", "a+") as lock:
         fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
@@ -204,8 +216,7 @@ def build_all(names, variants=()) -> dict[str, pathlib.Path]:
     jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = pool.map(lambda job: build(*job), jobs)
-        return {f"{n}[{','.join(d)}]" if d else n: path
-                for (n, d), path in zip(jobs, paths)}
+        return {_key(n, d): path for (n, d), path in zip(jobs, paths)}
 
 
 def registers(key: str) -> dict[str, int]:
@@ -223,19 +234,38 @@ def registers(key: str) -> dict[str, int]:
     return regs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library of kernel ``name`` with its argtypes set."""
-    if name in _loaded:
-        return _loaded[name]
-    lib = ctypes.CDLL(str(build(name)))
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The built library of kernel ``name`` (with ``-D`` for each of
+    ``defines``) with its argtypes set."""
+    key = _key(name, tuple(defines))
+    if key in _loaded:
+        return _loaded[key]
+    lib = ctypes.CDLL(str(build(name, tuple(defines))))
     for fn, argtypes in _ARGTYPES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
-    _loaded[name] = lib
+    _loaded[key] = lib
     return lib
+
+
+@contextlib.contextmanager
+def swapped(name: str, defines=()):
+    """Within the block, every wrapper that loads kernel ``name`` launches
+    its build with ``defines`` instead (a measurement build: the tools time
+    a ``-D`` variant through the port's own wrappers)."""
+    lib = load(name, defines)
+    prev = _loaded.get(name)
+    _loaded[name] = lib
+    try:
+        yield lib
+    finally:
+        if prev is None:
+            del _loaded[name]
+        else:
+            _loaded[name] = prev
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:

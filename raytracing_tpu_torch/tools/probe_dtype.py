@@ -43,9 +43,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import os
 import re
-import shutil
 import subprocess
 import sys
 
@@ -57,6 +55,7 @@ from ..ops import dtype as rdt
 from . import profile_render
 from .probe_fetch import median_ms
 from .probe_segment_split import sm_clock_mhz
+from .sass import backward_branches, cuobjdump, functions
 
 SMS = 132
 BITCAST_UNITS = 8192  # 8,388,608 words: a rate of bytes, not a launch
@@ -164,53 +163,15 @@ def layout(device) -> dict:
 
 
 # ---------------------------------------------------------------- SASS
-def _cuobjdump() -> str | None:
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "cuobjdump")
-    return cand if os.path.exists(cand) else None
-
-
-_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
-
-
-def loop_bodies(sass: str) -> dict[str, list[str]]:
+def loop_bodies(listing: str) -> dict[str, list[str]]:
     """Per function of ``cuobjdump -sass`` output, the instructions of its
-    largest loop: the body from a backward branch's target to the branch."""
-    funcs: dict[str, list[tuple[int, str]]] = {}
-    labels: dict[str, dict[str, int]] = {}
-    name, pending = None, []
-    for line in sass.splitlines():
-        m = re.search(r"Function\s*:\s*(\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name], labels[name], pending = [], {}, []
-            continue
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if name is not None and m:
-            pending.append(m.group(1))
-            continue
-        m = _INSN.search(line)
-        if name is not None and m:
-            addr = int(m.group(1), 16)
-            labels[name].update({lb: addr for lb in pending})
-            pending = []
-            funcs[name].append((addr, _PRED.sub("", m.group(2))))
+    largest loop: the body from a backward branch's target to the branch
+    (plain ``BRA`` only)."""
     bodies = {}
-    for fname, insns in funcs.items():
+    for fname, insns in functions(listing).items():
         best: list[str] = []
-        for addr, text in insns:
-            m = re.match(r"BRA\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)", text)
-            if not m:
-                continue
-            target = (int(m.group(1), 16) if m.group(1).startswith("0x")
-                      else labels[fname].get(m.group(1), addr + 1))
-            if target > addr:
-                continue
-            body = [t for a, t in insns if target <= a <= addr]
+        for lo, hi in backward_branches(insns, uniform=False):
+            body = [t for a, t in insns if lo <= a <= hi]
             if len(body) > len(best):
                 best = body
         bodies[fname] = best
@@ -220,7 +181,7 @@ def loop_bodies(sass: str) -> dict[str, list[str]]:
 def sass_counts() -> dict:
     """Each rate mode's main loop body in the built library: instructions
     (NOPs left out) per stream step of one element, and its opcodes."""
-    tool = _cuobjdump()
+    tool = cuobjdump()
     if tool is None:
         return {"available": False, "why": "cuobjdump not found"}
     proc = subprocess.run([tool, "-sass", str(_build.build("dtype"))],

@@ -479,3 +479,11 @@ def rate_probe_kernel(mod, dtype, op: str, iters: int):
         mod.pl, mod.jax = saved_pl, saved_jax
     assert built is not None, "rate_probe built no pallas_call"
     return built
+
+
+def sweep_edge_scene_jax():
+    """The three spheres of the sweep's edge-case rays
+    (``raytracing_tpu_torch/tools/sweep_edges.py``) in the JAX package."""
+    from raytracing_tpu_torch.tools import sweep_edges
+
+    return sweep_edges.add_spheres(SceneBuilder()).build()
