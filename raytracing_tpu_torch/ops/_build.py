@@ -40,7 +40,7 @@ _SCENE_ARGS = [
     _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
     _c_int, _c_ptr, _c_ptr,                    # sph_two_level, sph_ord, sph_bnd
     _c_ptr, _c_int, _c_int, _c_int,            # tex, tex_rows, kh, kw
-    _c_ptr, _c_int, _c_int,                    # tri, m_pad, tri_mode
+    _c_ptr, _c_int, _c_int, _c_int,            # tri, m_pad, m_actual, tri_mode
     _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
     _c_int, _c_int, _c_int, _c_int,            # cull_sphere, sph_sub, tri_sub, hint
     _c_int, _c_int,                            # radix_rows, radix_windows
@@ -64,6 +64,10 @@ _ARGTYPES = {
         ],
         "rt_sweep_root_launch": [
             ctypes.c_uint, _c_int, _c_ptr, _c_ptr,     # first, n, root, outside
+            _c_ptr,                                    # stream
+        ],
+        "rt_key_rcp_launch": [
+            ctypes.c_uint, _c_int, _c_ptr, _c_ptr,     # first, n, rcp, outside
             _c_ptr,                                    # stream
         ],
     },

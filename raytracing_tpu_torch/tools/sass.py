@@ -6,8 +6,8 @@ predicate left out and local labels resolved to addresses;
 ``backward_branches(insns)`` gives each loop as (first, last) address
 (a branch back to an address at or before its own); ``opcode(text)``
 names an instruction for a count. ``tools/probe_dtype.py`` (the rate
-loops), ``tools/probe_sweep.py`` (the sphere sweep's loops) and
-``chip_smoke.py`` (the fetch library) read their SASS through it.
+loops), ``tools/probe_sweep.py`` (the sphere and triangle sweeps' loops)
+and ``chip_smoke.py`` (the fetch library) read their SASS through it.
 """
 
 from __future__ import annotations
