@@ -6,8 +6,15 @@
 // (replicated over `units` tiles to fill the card):
 //
 //   0 bf16_cmp      (_probe_bf16_vector_cmp :66, call :81): x > bf16(0.5)
-//                   on a bf16 (8, 128) tile, as f32 0/1. One thread a bf16
-//                   pair: __hgt2, then __bfloat1622float2.
+//                   on a bf16 (8, 128) tile, as f32 0/1. Eight values a
+//                   vector: one 16-byte load, four __hgt2, two 16-byte
+//                   streaming stores (__stcs), one vector a thread (two
+//                   a thread, both loads issued first, measured 11-17%
+//                   slower on the card). Any 2-byte aligned x: the values
+//                   before its first 16-byte boundary and after its last
+//                   whole vector are a scalar head and tail; the wrapper
+//                   places the output so that out + head is 16-byte
+//                   aligned too.
 //   1 i16_relayout  (_probe_i16_mask_relayout :89, call :108): the f32
 //                   (8, 128) tile seen as int16 (16, 128) (rows 2r, 2r + 1
 //                   the low and high halves of row r), per column rows
@@ -29,7 +36,10 @@
 //                   warp hit 32 banks whatever the indices.
 //
 // What bounds it on this card: bytes (each tile read once, the result
-// written once); the work per byte is a compare or a select.
+// written once); the work per byte is a compare or a select. At the
+// probes' few thousand tiles a call is a few tens of microseconds, so the
+// host's work per launch (ops/features.py keeps it to an allocation and
+// the ctypes call) matters as much as the body.
 //
 // rt_features_launch launches on the given stream and returns
 // cudaGetLastError().
@@ -49,14 +59,34 @@ constexpr int kTabRows = 64;     // rows of the gather table
 
 enum Mode { kBf16Cmp = 0, kI16Relayout = 1, kI16Hoisted = 2, kDynGather = 3 };
 
-__global__ void __launch_bounds__(kThreads)
-bf16_cmp(const uint32_t* __restrict__ x, float2* __restrict__ out, int pairs) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
+// x > 0.5 of the bf16 pair in word w, as two floats.
+__device__ __forceinline__ float2 cmp2(uint32_t w) {
   __nv_bfloat162 v;
-  const uint32_t w = x[p];
   memcpy(&v, &w, 4);
-  out[p] = __bfloat1622float2(__hgt2(v, __float2bfloat162_rn(0.5f)));
+  return __bfloat1622float2(__hgt2(v, __float2bfloat162_rn(0.5f)));
+}
+
+// n values; x + head and out + head 16-byte aligned (head < 8). Thread v
+// takes vector v (values head + 8v ..); block 0 also the head and the
+// tail.
+__global__ void __launch_bounds__(kThreads)
+bf16_cmp(const __nv_bfloat16* __restrict__ x, float* __restrict__ out, int n,
+         int head) {
+  const int vecs = (n - head) / 8;
+  const int v = blockIdx.x * kThreads + threadIdx.x;
+  if (v < vecs) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(x + head) + v);
+    const float2 a = cmp2(w.x), b = cmp2(w.y), c = cmp2(w.z), d = cmp2(w.w);
+    float4* ov = reinterpret_cast<float4*>(out + head) + 2 * v;
+    __stcs(ov, make_float4(a.x, a.y, b.x, b.y));
+    __stcs(ov + 1, make_float4(c.x, c.y, d.x, d.y));
+  }
+  if (blockIdx.x == 0) {
+    const __nv_bfloat16 half = __float2bfloat16_rn(0.5f);
+    const int t = threadIdx.x, tail = head + 8 * vecs;
+    if (t < head) out[t] = __hgt(x[t], half) ? 1.0f : 0.0f;
+    if (tail + t < n) out[tail + t] = __hgt(x[tail + t], half) ? 1.0f : 0.0f;
+  }
 }
 
 // One thread per output word (unit u, row q of 4, column c).
@@ -100,20 +130,27 @@ dyn_gather(const float4* __restrict__ tab, const int32_t* __restrict__ idx,
 
 }  // namespace
 
-// units tiles; mode 0 bf16_cmp (a: bf16 [units, 8, 128], out: f32 of that
-// shape), 1 i16_relayout and 2 i16_hoisted (a: f32 [units, 8, 128], b:
+// units tiles; mode 0 bf16_cmp (a: bf16 [units, 8, 128], 2-byte aligned;
+// out: f32 of that shape, 16-byte aligned at the value where a is), 1
+// i16_relayout and 2 i16_hoisted (a: f32 [units, 8, 128], b:
 // int32 [units, 1, 128], out: f32 [units, 4, 128]), 3 dyn_gather (a: f32
-// [units, 64, 128], b: int32 [units, 8, 128] in [0, 64), out: f32
-// [units, 8, 128]).
+// [units, 64, 128], 16-byte aligned, b: int32 [units, 8, 128] in [0, 64),
+// out: f32 [units, 8, 128]).
 extern "C" int rt_features_launch(const void* a, const void* b, void* out,
                                   int units, int mode, void* stream) {
   if (units <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kBf16Cmp: {
-      const int pairs = units * kRows * kCols / 2;
-      bf16_cmp<<<(pairs + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-          static_cast<const uint32_t*>(a), static_cast<float2*>(out), pairs);
+      const int n = units * kRows * kCols;
+      const uintptr_t xa = reinterpret_cast<uintptr_t>(a);
+      const int head = static_cast<int>((16 - xa % 16) % 16 / 2);
+      const uintptr_t oa = reinterpret_cast<uintptr_t>(out) + 4 * head;
+      if (xa % 2 != 0 || oa % 16 != 0) return (int)cudaErrorMisalignedAddress;
+      const int grid = ((n - head) / 8 + kThreads - 1) / kThreads;
+      bf16_cmp<<<grid > 0 ? grid : 1, kThreads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(a), static_cast<float*>(out), n,
+          head);
       break;
     }
     case kI16Relayout:

@@ -7,6 +7,8 @@ the hash covers the source, the headers it includes and the flags, so an
 edited source or header rebuilds) and loaded with ``ctypes``. Nothing here
 runs at import time, and nothing falls back: a missing ``nvcc`` or a failed
 build raises. ``build_all`` runs one ``nvcc`` per source, all at once.
+``launch`` calls a C launcher on a device's current stream at the least
+host cost a call.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import re
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -274,3 +278,15 @@ def swapped(name: str, defines=()):
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"{err} ({lib.rt_error_string(err).decode()})"
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``: a C launcher of a library of ``load``, called
+    with the raw pointer of ``device``'s current stream (no Stream object
+    is built), switching the current device only where ``device`` is not
+    it. Returns ``fn``'s error code."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

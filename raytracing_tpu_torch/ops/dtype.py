@@ -275,6 +275,10 @@ def _launch_bitcast(x, halves):
 
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    if x.data_ptr() % 8:
+        # The kernel reads x as pairs of words (8-byte loads).
+        raise ValueError(f"x must be 8-byte aligned (its data_ptr() % 8 is "
+                         f"{x.data_ptr() % 8})")
     out = torch.empty((*x.shape[:-2], 2 * x.shape[-2], COLS),
                       dtype=torch.int16, device=x.device)
     hv = torch.zeros(2, dtype=torch.int32, device=x.device)
@@ -296,6 +300,9 @@ def _launch_rate(a, b, mode, iters):
 
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
+    if (a.data_ptr() | b.data_ptr()) % 4:
+        # The kernel reads a and b as 32-bit words (a 16-bit pair each).
+        raise ValueError("a and b must be 4-byte aligned")
     out = torch.empty_like(a)
     words = a.numel() * a.element_size() // 4
     lib = _build.load("dtype")

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _build
 from .dtype import bitcast_i16
 
 MODES = ("bf16_cmp", "i16_relayout", "i16_hoisted", "dyn_gather")
@@ -43,6 +44,15 @@ SECTOR = 32  # bytes
 
 # Launches of csrc/features.cu per mode.
 launch_counts = {f"features_{m}": 0 for m in MODES}
+# Per mode: the (dtype, tail shape) of each tensor it takes, the kernel's
+# mode id and the launch counter's key.
+_SELECT = ((torch.float32, (ROWS, COLS)), (torch.int32, (1, COLS)))
+_SPECS = {m: (want, MODES.index(m), f"features_{m}") for m, want in (
+    ("bf16_cmp", ((torch.bfloat16, (ROWS, COLS)),)),
+    ("i16_relayout", _SELECT),
+    ("i16_hoisted", _SELECT),
+    ("dyn_gather", ((torch.float32, (TAB_ROWS, COLS)),
+                    (torch.int32, (ROWS, COLS)))))}
 
 
 def reset_launch_counts() -> None:
@@ -93,26 +103,21 @@ def seeded_inputs(mode: str, units: int, seed: int = 0) -> tuple:
 
 
 def _check(mode: str, args: tuple) -> None:
-    if mode not in MODES:
+    spec = _SPECS.get(mode)
+    if spec is None:
         raise ValueError(f"unknown feature mode {mode!r}")
-    want = {
-        "bf16_cmp": ((torch.bfloat16, (ROWS, COLS)),),
-        "i16_relayout": ((torch.float32, (ROWS, COLS)), (torch.int32, (1, COLS))),
-        "i16_hoisted": ((torch.float32, (ROWS, COLS)), (torch.int32, (1, COLS))),
-        "dyn_gather": ((torch.float32, (TAB_ROWS, COLS)),
-                       (torch.int32, (ROWS, COLS))),
-    }[mode]
+    want = spec[0]
     if len(args) != len(want):
         raise ValueError(f"{mode} takes {len(want)} tensors, got {len(args)}")
-    lead = args[0].shape[:-2]
+    lead, dev = args[0].shape[:-2], args[0].device
     for t, (dtype, tail) in zip(args, want):
-        if t.dtype != dtype or tuple(t.shape[-2:]) != tail or t.shape[:-2] != lead:
+        shape = t.shape
+        if t.dtype != dtype or shape[-2:] != tail or shape[:-2] != lead:
             raise ValueError(f"{mode}: want {dtype} [..., {tail[0]}, {tail[1]}] "
                              f"with one leading shape, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != args[0].device:
-            raise ValueError(f"{mode}: tensors on {t.device} and "
-                             f"{args[0].device}")
+        if t.device != dev:
+            raise ValueError(f"{mode}: tensors on {t.device} and {dev}")
 
 
 def bitcast_32(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -151,9 +156,9 @@ def features(mode: str, *args: torch.Tensor) -> torch.Tensor:
     """``features_reference``'s function: CUDA tensors launch
     ``csrc/features.cu`` (or raise), CPU tensors run the plain version."""
     _check(mode, args)
-    dev = args[0].device
-    if dev.type == "cuda":
+    if args[0].is_cuda:
         return _launch_cuda(mode, args)
+    dev = args[0].device
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return features_reference(mode, *args)
@@ -167,8 +172,7 @@ def nbytes(mode: str, *args: torch.Tensor) -> int:
     index outside reads nothing), an int16 select only the half of ``x``
     that each column's mask picks."""
     _check(mode, args)
-    lead = args[0].shape[:-2]
-    units = int(np.prod(lead)) if len(lead) else 1
+    units = args[-1].numel() // (args[-1].shape[-2] * COLS)
     words = SECTOR // 4          # 32-bit words in a sector
     groups = COLS // words       # sectors in a row of 128 words
     if mode == "bf16_cmp":
@@ -191,25 +195,44 @@ def nbytes(mode: str, *args: torch.Tensor) -> int:
             + units * (4 * COLS + 4 * ROWS // 2 * COLS))
 
 
-def _launch_cuda(mode, args):
-    from . import _build
+def _output(mode: str, args: tuple) -> torch.Tensor:
+    """The f32 output for ``args``, allocated at the least host cost.
+    bf16_cmp's kernel loads 16-byte vectors from the first 16-byte
+    boundary of x and stores them at the same value of the output, which
+    must then be 16-byte aligned too: for an x off its boundary the output
+    is a view that far into a block of the allocator's (which aligns every
+    block). dyn_gather's table is read in 16-byte vectors: it must be
+    16-byte aligned (``ValueError``)."""
+    a = args[0]
+    if mode in ("i16_relayout", "i16_hoisted"):
+        return a.new_empty((*a.shape[:-2], ROWS // 2, COLS))
+    off = a.data_ptr() % 16
+    if mode == "dyn_gather":
+        if off:
+            raise ValueError(f"dyn_gather: tab must be 16-byte aligned (its "
+                             f"data_ptr() % 16 is {off})")
+        return torch.empty_like(args[1], dtype=torch.float32)
+    if off == 0:
+        return torch.empty_like(a, dtype=torch.float32)
+    o = -((16 - off) // 2) % 4
+    buf = a.new_empty(a.numel() + o, dtype=torch.float32)
+    return buf[o:].view(a.shape)
 
+
+def _launch_cuda(mode, args):
     for t in args:
         if not t.is_contiguous():
             raise ValueError(f"{mode}: tensors must be contiguous")
-    lead = args[0].shape[:-2]
-    units = int(np.prod(lead)) if len(lead) else 1
-    rows = ROWS // 2 if mode in ("i16_relayout", "i16_hoisted") else ROWS
-    out = torch.empty((*lead, rows, COLS), dtype=torch.float32,
-                      device=args[0].device)
+    _, mode_id, key = _SPECS[mode]
+    a = args[0]
+    units = args[-1].numel() // (args[-1].shape[-2] * COLS)
+    out = _output(mode, args)
     b = args[1].data_ptr() if len(args) > 1 else None
     lib = _build.load("features")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.rt_features_launch(args[0].data_ptr(), b, out.data_ptr(),
-                                     units, MODES.index(mode), stream)
+    err = _build.launch(lib.rt_features_launch, a.device, a.data_ptr(), b,
+                        out.data_ptr(), units, mode_id)
     if err != 0:
         raise RuntimeError(f"features kernel launch failed ({mode}): "
                            f"{_build.error_string(lib, err)}")
-    launch_counts[f"features_{mode}"] += 1
+    launch_counts[key] += 1
     return out

@@ -446,6 +446,13 @@ def _launch_fetch_cuda(table, sel, mode, iters):
     from . import _build
 
     n, c = table.shape
+    # The radix modes read rows of a multiple of 4 words as 16-byte
+    # vectors, of 2 words as 8-byte ones (load_row); the others read words.
+    align = 16 if c % 4 == 0 else 8 if c % 2 == 0 else 4
+    if mode in ("radix", "radix16") and table.data_ptr() % align:
+        raise ValueError(f"table of {c} columns must be {align}-byte aligned "
+                         f"(its data_ptr() % {align} is "
+                         f"{table.data_ptr() % align})")
     g = sel.numel()
     planes = fetch_planes(table) if mode == "onehot" else None
     out = torch.empty((c, g), dtype=torch.int32, device=table.device)

@@ -14,10 +14,18 @@ on the timing set (``--large`` seeded values in [0.5, 1.5)). The ``ieee``
 and ``rn`` modes must equal the plain version (``torch.reciprocal`` and
 ``torch.div`` on the card) bit for bit on all three sets.
 
-Times: the median of ``calls`` CUDA-event timings of ``loops`` back-to-back
-launches, per launch, for each mode and for ``torch.reciprocal`` plus
-``torch.div`` on the same inputs, at the probe's 1,024 elements (a launch's
-latency) and at ``--large`` elements (a rate of bytes).
+Times, for each mode and for ``torch.reciprocal`` plus ``torch.div`` on
+the same inputs, at the probe's 1,024 elements (a launch's latency) and
+at ``--large`` elements (a rate of bytes), split three ways
+(``probe_fetch.split``): ``ms`` / ``ms_large``, the median of ``calls``
+CUDA-event timings of ``loops`` (at ``--large``: 5) back-to-back calls,
+per call; ``host_us`` / ``host_us_large``, the host's µs a call with no
+synchronise between calls; ``device_ms`` / ``device_ms_large``, the
+card's ms a call from ``torch.profiler``'s device events. A call whose
+host µs exceed its device time is held to the host in a back-to-back
+loop. ``sass`` counts each mode's global loads and stores by width in
+the built library (``tools/sass.py``; ``available`` false without
+``cuobjdump``).
 
 Usage (on the card; prints the ulp lines, then the whole result as one
 JSON object)::
@@ -30,14 +38,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops import divide as rdiv
-from . import profile_render
-from .probe_fetch import median_ms
+from . import profile_render, sass
+from .probe_fetch import median_ms, split
 
 
 def ulp_stats(x: torch.Tensor, num: torch.Tensor, recip: torch.Tensor,
@@ -68,6 +78,19 @@ def bound_ms(n: int) -> float:
     return 16 * n / profile_render.HBM_RATE * 1e3
 
 
+def mode_of(fname: str) -> str | None:
+    """The divide mode of a kernel's (mangled) name, ``divide<mode, ...>``."""
+    m = re.search(r"divide\w*?ILi(\d)E", fname)
+    return rdiv.MODES[int(m.group(1))] if m else None
+
+
+def _timed(row: dict, fn, loops: int, reps: int, suffix: str = "",
+           prefix: str = "") -> None:
+    t = split(fn, loops, reps)
+    for key, value in t.items():
+        row[f"{prefix}{key}{suffix}"] = value
+
+
 def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
     """Every mode's ulp errors and bit-equality on the probe's inputs, the
     edge set and the timing set, and the times; raises AssertionError
@@ -96,26 +119,44 @@ def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
                                          (q - pq).abs().max())),
                 "zeros": int((r == 0).sum() + (q == 0).sum()),
             }
-        row["ms"] = median_ms(lambda m=mode: rdiv.divide(x, num, m), calls,
-                              loops)
-        row["ms_large"] = median_ms(lambda m=mode: rdiv.divide(lx, ln, m),
-                                    calls, 5)
+        _timed(row, lambda m=mode: rdiv.divide(x, num, m), loops, calls)
+        _timed(row, lambda m=mode: rdiv.divide(lx, ln, m), 5, calls,
+               "_large")
         res["modes"][mode] = row
         if mode in ("ieee", "rn") and not all(
                 row[name]["bit_equal_plain"] for name in SETS):
             raise AssertionError(f"divide {mode}: differs from the plain "
                                  "version")
-    res["library_ms"] = median_ms(
-        lambda: (torch.reciprocal(x), torch.div(num, x)), calls, loops)
-    res["library_ms_large"] = median_ms(
-        lambda: (torch.reciprocal(lx), torch.div(ln, lx)), calls, 5)
+    _timed(res, lambda: (torch.reciprocal(x), torch.div(num, x)), loops,
+           calls, prefix="library_")
+    _timed(res, lambda: (torch.reciprocal(lx), torch.div(ln, lx)), 5, calls,
+           "_large", "library_")
     res["plain_ms"] = median_ms(lambda: rdiv.divide_reference(x, num),
                                 calls, loops)
     res["bound_ms"] = bound_ms(x.numel())
     res["bound_ms_large"] = bound_ms(large)
     res["elements"] = x.numel()
     res["elements_large"] = large
+    res["sass"] = sass.accesses_by_mode(_build.build("divide"), mode_of,
+                                        rdiv.MODES)
     return res
+
+
+def _dev(ms) -> str:
+    return "not recorded" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def describe(row: dict, prefix: str = "") -> str:
+    """One line of a mode's (or, with ``prefix`` "library_", the
+    library's) times at both sizes."""
+    def get(key, suffix=""):
+        return row[f"{prefix}{key}{suffix}"]
+
+    return (f"{get('ms') * 1e3:.2f} us/call back to back, host "
+            f"{get('host_us'):.2f} us, device {_dev(get('device_ms'))} at "
+            f"the probe's size; {get('ms', '_large'):.4f} ms, host "
+            f"{get('host_us', '_large'):.2f} us, device "
+            f"{_dev(get('device_ms', '_large'))} at the large size")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -135,12 +176,12 @@ def main(argv: list[str] | None = None) -> int:
                   f"{s['quot_max_ulp']:.3f} mean {s['quot_mean_ulp']:.4f}; "
                   f"bit-equal to plain {s['bit_equal_plain']}, zeros "
                   f"{s['zeros']}")
-        print(f"{mode:6s} {row['ms'] * 1e3:.2f} us/launch at "
-              f"{res['elements']}, {row['ms_large']:.4f} ms at "
-              f"{res['elements_large']}")
-    print(f"torch.reciprocal + torch.div: {res['library_ms'] * 1e3:.2f} us at "
-          f"{res['elements']}, {res['library_ms_large']:.4f} ms at "
-          f"{res['elements_large']} (bound {res['bound_ms_large']:.4f} ms)")
+        print(f"{mode:6s} {describe(row)}")
+    print(f"torch.reciprocal + torch.div: {describe(res, 'library_')} "
+          f"(bound {res['bound_ms_large']:.4f} ms)")
+    if res["sass"]["available"]:
+        for mode, widths in res["sass"]["modes"].items():
+            print(f"{mode:6s} SASS global accesses {widths}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

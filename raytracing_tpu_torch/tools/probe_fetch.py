@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -100,6 +101,57 @@ def median_ms(fn, reps: int = 5, loops: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / loops)
     return float(np.median(times))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs a call: a host clock over ``calls`` calls with no
+    synchronise between them (after a warm-up call and a synchronise),
+    then one synchronise outside the clock. Where a call costs the card
+    less than the host, this is what back-to-back calls are held to."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
+    """Device ms a call from ``torch.profiler`` over ``calls`` calls: per
+    device event name (a kernel or a copy), the median time of its events,
+    summed over the names. Every call timed here runs each of its kernels
+    once; medians, not sums over calls, because the profiler drops some
+    events in a long process (a quarter of them in chip_smoke's). None
+    where ``tries`` profiles recorded no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                times.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if times:
+            return sum(float(np.median(t)) for t in times.values()) / 1e3
+    return None
+
+
+def split(fn, loops: int, reps: int = 5, calls: int = 20) -> dict:
+    """A call's time three ways: the back-to-back median (``median_ms``
+    over ``loops`` calls), the host µs a call (``host_us`` over 10 ×
+    ``loops`` calls) and the device ms a call (``device_ms``)."""
+    return {"ms": median_ms(fn, reps, loops),
+            "host_us": host_us(fn, 10 * loops),
+            "device_ms": device_ms(fn, calls)}
 
 
 def bound_ms(rows: int, cols: int, lanes: int) -> float:

@@ -5,9 +5,13 @@ a listing into its functions' instructions, as (address, text) with the
 predicate left out and local labels resolved to addresses;
 ``backward_branches(insns)`` gives each loop as (first, last) address
 (a branch back to an address at or before its own); ``opcode(text)``
-names an instruction for a count. ``tools/probe_dtype.py`` (the rate
-loops), ``tools/probe_sweep.py`` (the sphere and triangle sweeps' loops)
-and ``chip_smoke.py`` (the fetch library) read their SASS through it.
+names an instruction for a count; ``global_accesses(listing)`` counts
+each function's global loads and stores by width, and
+``accesses_by_mode(library, mode_of, modes)`` sums them by a kernel's mode.
+``tools/probe_dtype.py`` (the rate loops), ``tools/probe_sweep.py`` (the
+sphere and triangle sweeps' loops), ``tools/probe_divide.py`` and
+``tools/probe_features.py`` (the access widths) and ``chip_smoke.py`` (the
+fetch library) read their SASS through it.
 """
 
 from __future__ import annotations
@@ -99,3 +103,42 @@ def opcode(text: str) -> str:
     if parts[0] == "MUFU":
         return ".".join(parts[:2])
     return parts[0]
+
+
+def global_accesses(listing: str) -> dict[str, dict[str, int]]:
+    """Per function of a listing, its global loads and stores by width in
+    bits (``LDG.E.U16`` is ``LDG.16``, ``LDG.E.128`` ``LDG.128``; 32
+    where the instruction names none), counted over the whole function."""
+    out = {}
+    for fname, insns in functions(listing).items():
+        counts: dict[str, int] = {}
+        for _, text in insns:
+            parts = text.split()[0].split(".")
+            if parts[0] not in ("LDG", "STG"):
+                continue
+            width = [p.lstrip("US") for p in parts[1:]
+                     if p.lstrip("US").isdigit()] or ["32"]
+            key = f"{parts[0]}.{width[0]}"
+            counts[key] = counts.get(key, 0) + 1
+        out[fname] = dict(sorted(counts.items()))
+    return out
+
+
+def accesses_by_mode(library, mode_of, modes) -> dict:
+    """Each mode's global loads and stores by width in a built library,
+    summed over the functions ``mode_of(name)`` maps to it (None leaves a
+    function out): ``{"available": True, "modes": {mode: counts}}``, one
+    entry per name of ``modes``, or ``{"available": False, "why": ...}``
+    without ``cuobjdump``."""
+    tool = cuobjdump()
+    if tool is None:
+        return {"available": False, "why": "cuobjdump not found"}
+    out = {"available": True, "modes": {m: {} for m in modes}}
+    for fname, counts in global_accesses(disassemble(tool, library)).items():
+        mode = mode_of(fname)
+        if mode is None:
+            continue
+        row = out["modes"][mode]
+        for key, n in counts.items():
+            row[key] = row.get(key, 0) + n
+    return out

@@ -107,3 +107,24 @@ def test_wrapper_checks():
         tdiv.divide(x.double(), num)
     with pytest.raises(ValueError, match="shape"):
         tdiv.divide(x, num[:4])
+
+
+_RAGGED = [1, 3, 4, 5, 255, 1023, 1024, 1025, 16_777_217]
+
+
+@pytest.mark.parametrize("n", _RAGGED)
+def test_plain_version_is_numpys_correctly_rounded_quotient(n):
+    # The ragged sizes of the kernel's scalar tail: every mode's function
+    # (the plain version on the CPU) equals numpy's f32 division, which is
+    # correctly rounded, bit for bit.
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    x *= rng.choice([-1.0, 1.0], n).astype(np.float32)
+    num = rng.uniform(-4.0, 4.0, n).astype(np.float32)
+    for mode in tdiv.MODES:
+        recip, quot = tdiv.divide(torch.from_numpy(x), torch.from_numpy(num),
+                                  mode)
+        assert np.array_equal(recip.numpy().view(np.int32),
+                              (np.float32(1.0) / x).view(np.int32))
+        assert np.array_equal(quot.numpy().view(np.int32),
+                              (num / x).view(np.int32))

@@ -163,6 +163,77 @@ def test_wrapper_checks():
         tfeat.features("i16_relayout", x)
 
 
+_CHECK_CASES = {
+    "bad mode": ("i32_relayout", lambda x, s: (x, s), "mode"),
+    "dtype": ("i16_relayout", lambda x, s: (x, s.float()), "want"),
+    "tail shape": ("i16_relayout", lambda x, s: (x[:4], s), "want"),
+    "arity": ("i16_relayout", lambda x, s: (x,), "takes 2"),
+    "leading shapes": ("i16_relayout", lambda x, s: (
+        x.expand(2, *x.shape), s.expand(3, *s.shape)), "one leading shape"),
+    "devices": ("i16_relayout", lambda x, s: (x, s.to("meta")), "tensors on"),
+}
+
+
+@pytest.mark.parametrize("case", list(_CHECK_CASES))
+def test_wrapper_checks_raise_before_any_launch(case):
+    # Each check raises ValueError with its message, the plain version's
+    # too (both call one check, built once at import).
+    mode, make, match = _CHECK_CASES[case]
+    args = make(*tfeat.inputs("i16_relayout"))
+    for fn in (tfeat.features, tfeat.features_reference):
+        with pytest.raises(ValueError, match=match):
+            fn(mode, *args)
+
+
+@pytest.mark.parametrize("off", range(8))
+def test_bf16_cmp_output_is_placed_for_the_kernels_vectors(off):
+    # The kernel stores 16-byte vectors from the first 16-byte boundary of
+    # x (after a head of `head` values): the wrapper's output must be
+    # 16-byte aligned at that value too. On the CPU the wrapper computes
+    # the plain version of the view, which is the tile's.
+    (x,) = tfeat.seeded_inputs("bf16_cmp", 3, seed=off)
+    buf = torch.empty(x.numel() + 8, dtype=torch.bfloat16)
+    view = buf[off:off + x.numel()].view(x.shape)
+    view.copy_(x)
+    out = tfeat._output("bf16_cmp", (view,))
+    head = (16 - view.data_ptr() % 16) % 16 // 2
+    assert out.shape == x.shape and out.is_contiguous()
+    assert out.dtype == torch.float32
+    assert (out.data_ptr() + 4 * head) % 16 == 0
+    assert torch.equal(tfeat.features("bf16_cmp", view),
+                       tfeat.features_reference("bf16_cmp", x))
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_dyn_gather_table_off_16_bytes_is_refused(off):
+    tab, idx = tfeat.seeded_inputs("dyn_gather", 2)
+    buf = torch.empty(tab.numel() + 3)
+    view = buf[off:off + tab.numel()].view(tab.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfeat._output("dyn_gather", (view, idx))
+    out = tfeat._output("dyn_gather", (tab, idx))
+    assert out.shape == (2, 8, 128) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("mode", tfeat.MODES)
+def test_output_shapes(mode):
+    args = tfeat.seeded_inputs(mode, 3)
+    out = tfeat._output(mode, args)
+    want = tfeat.features_reference(mode, *args)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    assert out.is_contiguous()
+
+
+def test_units_come_from_numel():
+    for mode in tfeat.MODES:
+        args = tfeat.seeded_inputs(mode, 6)
+        args = [a.reshape(2, 3, *a.shape[1:]) for a in args]
+        assert tfeat.features(mode, *args).shape[:2] == (2, 3)
+    assert tfeat.nbytes("bf16_cmp", *[a.reshape(2, 3, 8, 128) for a in
+                                      tfeat.seeded_inputs("bf16_cmp", 6)]) \
+        == 6 * 8 * 128 * (2 + 4)
+
+
 # ---------------------------------------------------------------- watcher
 FP = {"torch": "t", "torch_cuda": "c", "nvcc": "n", "device": "cpu"}
 
