@@ -5,11 +5,9 @@
 //   bitcast_probe (:31, called at :40): pltpu.bitcast of an f32 (8, 128)
 //     tile to int16 (16, 128). In interpret mode row 2r holds the low
 //     halves of row r's words and row 2r+1 the high halves; this kernel
-//     writes that layout for any [..., R, 128] f32 tensor. One thread takes
-//     two neighbouring words and splits them in registers with __byte_perm
-//     into one word of low halves and one of high halves (two 32-bit
-//     stores). With a non-null `halves` it also writes which half of the
-//     first word __nv_bfloat162.x and short2.x read.
+//     writes that layout for any [..., R, 128] f32 tensor. With a non-null
+//     `halves` it also writes which half of the first word
+//     __nv_bfloat162.x and short2.x read.
 //
 //   rate_probe (:69, called at :96): per element, 8 streams
 //     s_i = a + (b + b) * i, `iters` dependent steps of each, then the
@@ -31,13 +29,30 @@
 //
 // What bounds it on this card: the rate modes are issue-bound by
 // construction (8 independent chains a thread, no memory traffic inside
-// the loop); the bitcast moves bytes. The design: one thread per 32-bit
-// word (one f32, or one pair of 16-bit elements), so a (rows, 128) tile is
-// rows x 128 threads for f32 and half as many words per row for 16-bit
-// types; the caller fills the card by replicating the tile. `iters`, the
-// mask and b are runtime values and the 8 chains stay live to the sum, so
-// nothing folds; the main loop's body is kUnroll steps of the 8 chains,
-// not unrolled further (tools/probe_dtype.py counts its SASS).
+// the loop). The design: one thread per 32-bit word (one f32, or one pair
+// of 16-bit elements), so a (rows, 128) tile is rows x 128 threads for
+// f32 and half as many words per row for 16-bit types; the caller fills
+// the card by replicating the tile. `iters`, the mask and b are runtime
+// values and the 8 chains stay live to the sum, so nothing folds; the
+// main loop's body is kUnroll steps of the 8 chains, not unrolled further
+// (tools/probe_dtype.py counts its SASS).
+//
+// The bitcast moves bytes: 8,388,608 words (tools/probe_dtype.py's size)
+// are 32 MiB read and 32 MiB written, 0.0200 ms at 3.35 TB/s; at one
+// tile (1,024 words) a call is the launch and the host's work. The
+// design: a thread takes 8 consecutive words of a row by two 16-byte
+// loads and splits them with __byte_perm into 8 low halves and 8 high
+// halves, written by one 16-byte streaming store (__stcs: the output is
+// not read again) to row 2r and one to row 2r + 1. A row of 128 words is
+// 16 threads and 512 bytes, so a 16-byte aligned x stays aligned on every
+// row; one group a thread over a grid that covers every group (a
+// grid-stride loop measured 4-8% slower for the divide probe's 16-byte
+// body, PERF.md). An x that is only 8-byte aligned (a view at an offset)
+// takes the pairs body: a thread a pair of words, an 8-byte load and two
+// 4-byte stores; the launcher picks the body from the pointers. The
+// wrapper (ops/dtype.py) keeps a call's host work to its checks, one
+// allocation for the output (and one for `halves` only when asked) and
+// _build.launch.
 //
 // rt_dtype_*_launch launch on the given stream and return
 // cudaGetLastError().
@@ -201,10 +216,44 @@ rate_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   out[w] = reduce<kMode>(s);
 }
 
-// One thread per pair of neighbouring words (columns c, c + 1 of row r).
+// The `halves` reads of the first word w: the half __nv_bfloat162.x and
+// the half short2.x read.
+__device__ __forceinline__ void write_halves(uint32_t w, uint32_t* halves) {
+  const __nv_bfloat162 h = bf2_of(w);
+  short2 s2;
+  memcpy(&s2, &w, 4);
+  halves[0] = __bfloat16_as_ushort(h.x);
+  halves[1] = static_cast<uint16_t>(s2.x);
+}
+
+// The 16-byte body: thread g takes words [8g, 8g + 8) (row g / 16,
+// columns 8 (g % 16) on) and stores their low halves to int16 row 2r and
+// their high halves to row 2r + 1, at the same columns.
 __global__ void __launch_bounds__(kThreads)
-bitcast_kernel(const uint2* __restrict__ x, uint32_t* __restrict__ out,
-               uint32_t* __restrict__ halves, int pairs) {
+bitcast16_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                 uint32_t* __restrict__ halves, int groups) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  const uint4 a = __ldg(x + 2 * g);
+  const uint4 b = __ldg(x + 2 * g + 1);
+  const uint4 lo = make_uint4(
+      __byte_perm(a.x, a.y, 0x5410), __byte_perm(a.z, a.w, 0x5410),
+      __byte_perm(b.x, b.y, 0x5410), __byte_perm(b.z, b.w, 0x5410));
+  const uint4 hi = make_uint4(
+      __byte_perm(a.x, a.y, 0x7632), __byte_perm(a.z, a.w, 0x7632),
+      __byte_perm(b.x, b.y, 0x7632), __byte_perm(b.z, b.w, 0x7632));
+  // Output row 2r in uint4 units starts at 32 r; a row is 16 of them.
+  const int row = g >> 4, col = g & 15;
+  __stcs(out + 32 * row + col, lo);
+  __stcs(out + 32 * row + 16 + col, hi);
+  if (halves != nullptr && g == 0) write_halves(a.x, halves);
+}
+
+// The pairs body (x 8-byte aligned only): one thread per pair of
+// neighbouring words (columns c, c + 1 of row r).
+__global__ void __launch_bounds__(kThreads)
+bitcast8_kernel(const uint2* __restrict__ x, uint32_t* __restrict__ out,
+                uint32_t* __restrict__ halves, int pairs) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= pairs) return;
   const uint2 v = x[p];
@@ -212,27 +261,32 @@ bitcast_kernel(const uint2* __restrict__ x, uint32_t* __restrict__ out,
   // int16 rows 2r (low halves) and 2r + 1 (high halves), columns c, c + 1.
   out[row * kCols + c / 2] = __byte_perm(v.x, v.y, 0x5410);
   out[row * kCols + kCols / 2 + c / 2] = __byte_perm(v.x, v.y, 0x7632);
-  if (halves != nullptr && p == 0) {
-    const __nv_bfloat162 h = bf2_of(v.x);
-    short2 s2;
-    memcpy(&s2, &v.x, 4);
-    halves[0] = __bfloat16_as_ushort(h.x);
-    halves[1] = static_cast<uint16_t>(s2.x);
-  }
+  if (halves != nullptr && p == 0) write_halves(v.x, halves);
 }
 
 }  // namespace
 
-// x: f32 [words] (rows of 128); out: int16 [2 * words]; halves: int32 [2]
-// or null.
+// x: f32 [words] (rows of 128), at least 8-byte aligned; out: int16
+// [2 * words]; halves: int32 [2] or null. The 16-byte body runs where x
+// and out are 16-byte aligned, the pairs body elsewhere.
 extern "C" int rt_dtype_bitcast_launch(const void* x, void* out, void* halves,
                                        int words, void* stream) {
-  if (words <= 0 || words % kCols != 0) return (int)cudaErrorInvalidValue;
-  const int pairs = words / 2;
-  const int grid = (pairs + kThreads - 1) / kThreads;
-  bitcast_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint2*>(x), static_cast<uint32_t*>(out),
-      static_cast<uint32_t*>(halves), pairs);
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t op = reinterpret_cast<uintptr_t>(out);
+  if (words <= 0 || words % kCols != 0 || xp % 8 != 0 || op % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* hv = static_cast<uint32_t*>(halves);
+  if (xp % 16 == 0) {
+    const int groups = words / 8;
+    bitcast16_kernel<<<(groups + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(out), hv, groups);
+  } else {
+    const int pairs = words / 2;
+    bitcast8_kernel<<<(pairs + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        static_cast<const uint2*>(x), static_cast<uint32_t*>(out), hv, pairs);
+  }
   return (int)cudaGetLastError();
 }
 

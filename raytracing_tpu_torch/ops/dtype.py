@@ -7,10 +7,13 @@ Counterpart of the JAX package's probe kernels (``scripts/probe_dtype.py``:
 
 * ``"bitcast"``: f32 ``[..., R, 128]`` to int16 ``[..., 2R, 128]`` in the
   layout the JAX probe finds in interpret mode: row 2r holds the low
-  halves of row r's words, row 2r+1 the high halves. The kernel splits
-  each pair of words into a word of low halves and a word of high halves
-  with ``__byte_perm``. It also reports which half ``__nv_bfloat162.x``
-  and ``short2.x`` read (``bitcast(..., halves=True)``).
+  halves of row r's words, row 2r+1 the high halves. A thread of the
+  kernel takes 8 words of a row by two 16-byte loads, splits them with
+  ``__byte_perm`` and writes 8 low halves and 8 high halves by one
+  16-byte store each (``group_map`` is its index map); an input that is
+  only 8-byte aligned takes a body of two words a thread. It also reports
+  which half ``__nv_bfloat162.x`` and ``short2.x`` read
+  (``bitcast(..., halves=True)``).
 * The rate modes, each the JAX kernel's function of its tile: per element,
   8 streams ``s_i = a + (b + b) * i``, then ``iters`` dependent steps of
   each stream, then the streams summed in order (xor'ed for int16):
@@ -52,6 +55,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import _build
 
 RATE_MODES = ("f32_fma", "f32_select", "bf16_fma", "bf16_select",
               "i16_select")
@@ -119,11 +124,26 @@ def replicate(t: torch.Tensor, units: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- bitcast
+GROUP = 8  # words a thread of the 16-byte body takes
+
+
 def _check_bitcast(x):
     if x.dtype != torch.float32:
         raise TypeError("x must be float32")
     if x.dim() < 2 or x.shape[-1] != COLS or x.numel() == 0:
         raise ValueError(f"x must be [..., rows, {COLS}]")
+
+
+def group_map(words: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The 16-byte body's index map over ``words`` f32 words (rows of
+    128): per thread g, the first word it loads (8 in a row, two 16-byte
+    loads) and the int16 offsets where its low-halves and high-halves
+    stores (8 halves each) begin. Thread g takes row g // 16, columns
+    8 (g % 16) on; its stores land at those columns of int16 rows 2r and
+    2r + 1."""
+    g = np.arange(words // GROUP, dtype=np.int64)
+    row, col = g // (COLS // GROUP), GROUP * (g % (COLS // GROUP))
+    return GROUP * g, 2 * row * COLS + col, (2 * row + 1) * COLS + col
 
 
 def bitcast_i16(x: torch.Tensor) -> torch.Tensor:
@@ -250,8 +270,6 @@ def steps_per_body() -> int:
     """Steps of every stream in one body of the rate kernel's main loop
     (``kUnroll`` of the built ``csrc/dtype.cu``): the SASS count divides
     that body by them."""
-    from . import _build
-
     return int(_build.load("dtype").rt_dtype_steps_per_body())
 
 
@@ -271,23 +289,19 @@ def element_steps(numel: int, iters: int) -> int:
 
 # ---------------------------------------------------------------- launches
 def _launch_bitcast(x, halves):
-    from . import _build
-
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if x.data_ptr() % 8:
-        # The kernel reads x as pairs of words (8-byte loads).
+        # The kernel reads x in 16-byte groups or 8-byte pairs of words.
         raise ValueError(f"x must be 8-byte aligned (its data_ptr() % 8 is "
                          f"{x.data_ptr() % 8})")
-    out = torch.empty((*x.shape[:-2], 2 * x.shape[-2], COLS),
-                      dtype=torch.int16, device=x.device)
-    hv = torch.zeros(2, dtype=torch.int32, device=x.device)
+    shape = x.shape
+    out = x.new_empty((*shape[:-2], 2 * shape[-2], COLS), dtype=torch.int16)
+    hv = x.new_empty(2, dtype=torch.int32) if halves else None
     lib = _build.load("dtype")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rt_dtype_bitcast_launch(
-            x.data_ptr(), out.data_ptr(), hv.data_ptr() if halves else None,
-            x.numel(), stream)
+    err = _build.launch(lib.rt_dtype_bitcast_launch, x.device, x.data_ptr(),
+                        out.data_ptr(), hv.data_ptr() if halves else None,
+                        x.numel())
     if err != 0:
         raise RuntimeError(f"dtype bitcast kernel launch failed: "
                            f"{_build.error_string(lib, err)}")
@@ -296,8 +310,6 @@ def _launch_bitcast(x, halves):
 
 
 def _launch_rate(a, b, mode, iters):
-    from . import _build
-
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     if (a.data_ptr() | b.data_ptr()) % 4:
@@ -306,11 +318,9 @@ def _launch_rate(a, b, mode, iters):
     out = torch.empty_like(a)
     words = a.numel() * a.element_size() // 4
     lib = _build.load("dtype")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rt_dtype_rate_launch(a.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), words,
-                                       RATE_MODES.index(mode), iters, stream)
+    err = _build.launch(lib.rt_dtype_rate_launch, a.device, a.data_ptr(),
+                        b.data_ptr(), out.data_ptr(), words,
+                        RATE_MODES.index(mode), iters)
     if err != 0:
         raise RuntimeError(f"dtype rate kernel launch failed: "
                            f"{_build.error_string(lib, err)}")

@@ -7,6 +7,11 @@ the first again), so that both trees see the card in the same state. The
 route is set through the environment as a user sets it: ``index`` is
 the default route (``RT_GATHER=mxu``), ``radix`` is ``RT_GATHER=radix``.
 
+It also renders, once per tree, each scene at 1920x1080 @ 64 spp, depth
+8, seed 0 through that tree's ``Renderer`` and records the SHA-256 of the
+image bytes and the segments, so that the trees' images are compared
+byte for byte.
+
 With ``--rays SCENE`` it also times, in each pass, a ray batch of the
 scene in that tree: ``trace_rays_fused`` on every pixel-centre ray of a
 1920-wide frame (as chip_smoke.py's trace phase builds them), depth 8,
@@ -26,10 +31,11 @@ Usage (on the card, from the repository root)::
 (a tree is any checkout of the repository, e.g. unpacked from ``git
 archive``).
 
-Prints one JSON object per (pass, tree, route, scene) and per (pass,
-tree, ray scene), and, last, a summary object: render seconds of every
-repeat by tree, route and scene, ray-batch ms by tree and scene, and
-whether every tree gave every ray batch the same bits.
+Prints one JSON object per (pass, tree, route, scene), per (pass, tree,
+ray scene) and per (tree, image scene), and, last, a summary object:
+render seconds of every repeat by tree, route and scene, ray-batch ms by
+tree and scene, and whether every tree gave every ray batch and every
+image the same bits (and the same segments).
 """
 
 from __future__ import annotations
@@ -83,6 +89,32 @@ for name in sys.argv[2:]:
 """
 
 
+# Run inside a tree: argv = scenes.
+_IMAGE_CHILD = """
+import hashlib, json, sys
+import raytracing_tpu_torch as rtt
+from raytracing_tpu_torch.tools import profile_render
+for name in sys.argv[1:]:
+    params, scene = profile_render.build(name, 1920, 64, 8)
+    r = rtt.Renderer(scene, params, seed=0, device="cuda")
+    img = r.render()
+    print(json.dumps({
+        "image_scene": name, "segments": r.segments_traced,
+        "image_sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+        "card": profile_render.card_line()}))
+"""
+
+
+def run_images(path: str, route: str, scenes: list[str]) -> list:
+    """The image objects of ``scenes`` in the tree at ``path``."""
+    env = {**os.environ, **ROUTES[route]}
+    out = subprocess.run([sys.executable, "-c", _IMAGE_CHILD, *scenes],
+                         cwd=path, env=env, check=True, capture_output=True,
+                         text=True).stdout
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
 def run_rays(path: str, route: str, scenes: list[str], reps: int) -> list:
     """The ray-batch objects of ``scenes`` in the tree at ``path``."""
     env = {**os.environ, **ROUTES[route]}
@@ -127,6 +159,8 @@ def main(argv: list[str] | None = None) -> int:
     summary: dict = {}
     ray_ms: dict = {}
     shas: dict = {}
+    images: dict = {}
+    imaged: set = set()
 
     def emit(rec: dict) -> None:
         line = json.dumps(rec)
@@ -142,6 +176,12 @@ def main(argv: list[str] | None = None) -> int:
                 secs = [r["seconds"] for r in obj["repeats"]]
                 (summary.setdefault(name, {}).setdefault(route, {})
                  .setdefault(obj["scene"], []).extend(secs))
+        if name not in imaged:
+            imaged.add(name)
+            for obj in run_images(path, args.route[0], args.scene):
+                emit({"tree": name, "route": args.route[0], **obj})
+                images.setdefault(obj["image_scene"], set()).add(
+                    (obj["image_sha256"], obj["segments"]))
         if args.rays:
             for obj in run_rays(path, args.route[0], args.rays,
                                 args.ray_reps):
@@ -154,6 +194,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({
         "render_seconds": summary, "ray_batch_ms": ray_ms,
         "ray_bits_equal": {k: len(v) == 1 for k, v in shas.items()},
+        "image_bits_equal": {k: len(v) == 1 for k, v in images.items()},
     }), flush=True)
     return 0
 

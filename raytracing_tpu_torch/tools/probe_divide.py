@@ -47,7 +47,7 @@ import torch
 from ..ops import _build
 from ..ops import divide as rdiv
 from . import profile_render, sass
-from .probe_fetch import median_ms, split
+from .probe_fetch import device_text, median_ms, split
 
 
 def ulp_stats(x: torch.Tensor, num: torch.Tensor, recip: torch.Tensor,
@@ -142,10 +142,6 @@ def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
     return res
 
 
-def _dev(ms) -> str:
-    return "not recorded" if ms is None else f"{ms * 1e3:.2f} us"
-
-
 def describe(row: dict, prefix: str = "") -> str:
     """One line of a mode's (or, with ``prefix`` "library_", the
     library's) times at both sizes."""
@@ -153,10 +149,11 @@ def describe(row: dict, prefix: str = "") -> str:
         return row[f"{prefix}{key}{suffix}"]
 
     return (f"{get('ms') * 1e3:.2f} us/call back to back, host "
-            f"{get('host_us'):.2f} us, device {_dev(get('device_ms'))} at "
-            f"the probe's size; {get('ms', '_large'):.4f} ms, host "
+            f"{get('host_us'):.2f} us, device "
+            f"{device_text(get('device_ms'))} at the probe's size; "
+            f"{get('ms', '_large'):.4f} ms, host "
             f"{get('host_us', '_large'):.2f} us, device "
-            f"{_dev(get('device_ms', '_large'))} at the large size")
+            f"{device_text(get('device_ms', '_large'))} at the large size")
 
 
 def main(argv: list[str] | None = None) -> int:

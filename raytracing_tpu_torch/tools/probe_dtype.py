@@ -26,9 +26,14 @@ The Hopper counterpart of the JAX package's ``scripts/probe_dtype.py``:
    run at twice the 32-bit rate? -- with an instruction count beside the
    rate.
 
-The bitcast is also timed on 8,192 tiles, beside
-``view`` + ``contiguous`` (the one PyTorch call of the same function) and
-its bytes bound. The kernels' parity with their plain versions is held
+The bitcast is also timed on 8,192 tiles (8,388,608 words) and on one
+tile (1,024 words), beside ``view`` + ``unflatten`` + ``transpose`` +
+``contiguous`` (the one PyTorch call of the same function) and its bytes
+bound, each call's time split three ways (``probe_fetch.split``): ``ms``
+back to back, ``host_us`` the host's µs a call, ``device_ms`` the card's
+ms a call (keys ``*_small`` at one tile, ``library_*`` for the library
+call); ``bitcast["sass"]`` counts the bitcast kernels' global loads and
+stores by width (``tools/sass.py``). The kernels' parity with their plain versions is held
 by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, not here.
 
 Usage (on the card; prints the layout, the rate and SASS lines, then the
@@ -52,8 +57,8 @@ import torch
 
 from ..ops import _build
 from ..ops import dtype as rdt
-from . import profile_render
-from .probe_fetch import median_ms
+from . import profile_render, sass
+from .probe_fetch import device_text, median_ms, split
 from .probe_segment_split import sm_clock_mhz
 from .sass import backward_branches, cuobjdump, functions
 
@@ -230,17 +235,42 @@ def probe_rate(mode: str, units: int, iters: int, calls: int) -> dict:
     }
 
 
+BITCAST_LOOPS = 200  # back-to-back calls a timing at one tile
+
+
+def bitcast_library(x: torch.Tensor):
+    """The one PyTorch call of the bitcast's function: ``view`` +
+    ``unflatten`` + ``transpose`` + ``contiguous``."""
+    return lambda: (x.view(torch.int16).unflatten(-1, (rdt.COLS, 2))
+                    .transpose(-1, -2).contiguous())
+
+
+def bitcast_mode_of(fname: str) -> str | None:
+    """``bitcast`` for the library's bitcast kernels (every body), else
+    None."""
+    return "bitcast" if "bitcast" in fname else None
+
+
 def probe_bitcast(units: int, calls: int) -> dict:
+    """The bitcast at ``units`` tiles (a rate of bytes) and at one tile
+    (1,024 words: a launch's latency and the host's work), each call's time
+    split three ways (``probe_fetch.split``: back to back, host µs a call,
+    device ms a call), beside the library call's, and the library's global
+    loads and stores by width (``sass.accesses_by_mode``)."""
     dev = torch.device("cuda")
     x = rdt.replicate(rdt.bitcast_input(), units).to(dev)
-    return {
-        "units": units, "words": x.numel(),
-        "ms": median_ms(lambda: rdt.bitcast(x), calls, 10),
-        "library_ms": median_ms(
-            lambda: x.view(torch.int16).unflatten(-1, (128, 2))
-            .transpose(-1, -2).contiguous(), calls, 10),
-        "bound_ms": bitcast_bound_ms(x.numel()), "bound_by": "bytes",
-    }
+    small = rdt.bitcast_input().to(dev)
+    res = {"units": units, "words": x.numel(), "words_small": small.numel(),
+           "bound_ms": bitcast_bound_ms(x.numel()), "bound_by": "bytes",
+           "bound_ms_small": bitcast_bound_ms(small.numel())}
+    for suffix, t, loops in (("", x, 10), ("_small", small, BITCAST_LOOPS)):
+        for prefix, fn in (("", lambda t=t: rdt.bitcast(t)),
+                           ("library_", bitcast_library(t))):
+            for key, value in split(fn, loops, calls).items():
+                res[f"{prefix}{key}{suffix}"] = value
+    res["sass"] = sass.accesses_by_mode(_build.build("dtype"),
+                                        bitcast_mode_of, ("bitcast",))
+    return res
 
 
 def run(units: int | None = None, iters: int = 2048,
@@ -258,6 +288,20 @@ def run(units: int | None = None, iters: int = 2048,
            "bitcast": probe_bitcast(BITCAST_UNITS, calls),
            "sass": sass_counts()}
     return res
+
+
+def describe_bitcast(bc: dict, suffix: str = "") -> str:
+    """One line of the bitcast's times at one size (``suffix`` "" or
+    "_small") beside the library call's and the bound."""
+    def get(key, prefix=""):
+        return bc[f"{prefix}{key}{suffix}"]
+
+    return (f"{get('ms'):.5f} ms back to back, host {get('host_us'):.2f} "
+            f"us, device {device_text(get('device_ms'))}; view + contiguous "
+            f"{get('ms', 'library_'):.5f} ms, host "
+            f"{get('host_us', 'library_'):.2f} us, device "
+            f"{device_text(get('device_ms', 'library_'))}; bound "
+            f"{get('bound_ms'):.5f} ms by bytes")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -285,8 +329,11 @@ def main(argv: list[str] | None = None) -> int:
               f"(bound {r['bound_steps_per_sm_cycle']:.0f}, "
               f"{r['sm_clock_mhz']:.0f} MHz){sass_txt}")
     bc = res["bitcast"]
-    print(f"  bitcast {bc['words']} words: {bc['ms']:.4f} ms, view + "
-          f"contiguous {bc['library_ms']:.4f} ms, bound {bc['bound_ms']:.4f} ms")
+    for suffix in ("", "_small"):
+        print(f"  bitcast {bc['words' + suffix]} words: "
+              f"{describe_bitcast(bc, suffix)}")
+    if bc["sass"]["available"]:
+        print(f"  bitcast SASS global accesses {bc['sass']['modes']['bitcast']}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -35,7 +35,7 @@ from ..ops import _build
 from ..ops import features as rfeat
 from ..ops.dtype import bits_equal
 from . import profile_render, sass
-from .probe_fetch import median_ms, split
+from .probe_fetch import device_text, median_ms, split
 
 SEED = 0
 # Tiles of every mode's timing, and of the LARGE_MODES' second one.
@@ -120,19 +120,15 @@ def run() -> dict:
     return res
 
 
-def _dev(ms) -> str:
-    return "not recorded" if ms is None else f"{ms:.5f} ms"
-
-
 def describe(mode: str, row: dict) -> str:
     """One line of a mode's times at one size."""
     return (f"{mode} on {row['tiles']} tiles: {row['ms']:.5f} ms back to "
             f"back, host {row['host_us']:.2f} us, device "
-            f"{_dev(row['device_ms'])}; plain {row['plain_ms']:.5f} ms; "
-            f"library {row['library_ms']:.5f} ms, host "
+            f"{device_text(row['device_ms'])}; plain {row['plain_ms']:.5f} "
+            f"ms; library {row['library_ms']:.5f} ms, host "
             f"{row['library_host_us']:.2f} us, device "
-            f"{_dev(row['library_device_ms'])}; bound {row['bound_ms']:.5f} "
-            f"ms by bytes")
+            f"{device_text(row['library_device_ms'])}; bound "
+            f"{row['bound_ms']:.5f} ms by bytes")
 
 
 def main(argv: list[str] | None = None) -> int:

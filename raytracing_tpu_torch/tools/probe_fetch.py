@@ -154,6 +154,12 @@ def split(fn, loops: int, reps: int = 5, calls: int = 20) -> dict:
             "device_ms": device_ms(fn, calls)}
 
 
+def device_text(ms) -> str:
+    """A ``device_ms`` for a log line ("not recorded" where the profiler
+    gave none)."""
+    return "not recorded" if ms is None else f"{ms:.5f} ms"
+
+
 def bound_ms(rows: int, cols: int, lanes: int) -> float:
     """Least time of the fetch: the selections read, C words a lane
     written and the table read once, over the card's memory rate."""

@@ -17,7 +17,13 @@ time of their parts on whole waves.
    ``SHFL``; per loop, in address order: rows a trip, instructions and
    opcodes per row, and whether it branches out (``CALL``, ``BSSY``,
    ``BSYNC``: the loop of one row a trip that sweeps again with the IEEE
-   divide may; a main loop of four may not).
+   divide may; a main loop of four may not). Loops that hold a
+   ``REDUX`` (a warp reduction) are the culled sweeps' cooperative loops
+   (``csrc/regen.cu``'s block schedule: the warp takes its passing rays one
+   after the other, four rows a lane, one reduction a window) and are
+   counted apart (``coop``, ``coop_loops``): rows a trip by ``MUFU.RSQ``
+   (spheres) or ``MUFU.RCP`` (triangles), instructions and opcodes per row,
+   ``REDUX`` a trip, and whether they branch out.
 2. ``parts``: one whole-budget wave of each scene (the ``Renderer``'s own
    tables and wave arguments over every slot, 1920x1080, depth 8) under
    measurement builds of ``regen.cu``: ``-DRT_SWEEP_PROBE=1`` copies every
@@ -106,49 +112,62 @@ def _innermost_loops(insns: list[tuple[int, str]]):
         yield lo, [o for o in ops if o != "NOP"]
 
 
+def _loop_row(ops: list[str], rows: int) -> dict:
+    counts = collections.Counter(ops)
+    return {
+        "rows_per_trip": rows,
+        "instructions_per_row": len(ops) / rows,
+        "opcodes_per_row": {k: v / rows for k, v in counts.most_common()},
+        "memory": "shared" if any(o.startswith("LDS") for o in ops)
+        else "global",
+        "branches_out": any(o in ("CALL", "BSSY", "BSYNC") for o in ops),
+    }
+
+
+def coop_loops(insns: list[tuple[int, str]], root: str) -> list[dict]:
+    """The innermost loops of one function that sweep rows cooperatively
+    (they hold a ``REDUX``), in address order: rows per trip (their count of
+    ``root``: ``MUFU.RSQ`` for sphere rows, ``MUFU.RCP`` for triangle rows),
+    ``REDUX`` per trip, and ``_loop_row``'s counts."""
+    loops = []
+    for lo, ops in _innermost_loops(insns):
+        rows = ops.count(root)
+        if rows == 0 or "REDUX" not in ops:
+            continue
+        loops.append({"address": lo, "redux_per_trip": ops.count("REDUX"),
+                      **_loop_row(ops, rows)})
+    return sorted(loops, key=lambda r: r["address"])
+
+
 def sweep_loops(insns: list[tuple[int, str]]) -> list[dict]:
-    """The innermost loops of one function that sweep sphere rows (see the
-    module docstring), largest first: rows per trip, instructions per row
-    and opcodes per row."""
+    """The innermost loops of one function that sweep sphere rows per lane
+    (see the module docstring), largest first: rows per trip, instructions
+    per row and opcodes per row."""
     loops = []
     for _, ops in _innermost_loops(insns):
         rows = ops.count("MUFU.RSQ")
-        if rows == 0 or not any(o.startswith(("LDS", "LDG")) for o in ops):
+        if (rows == 0 or "REDUX" in ops
+                or not any(o.startswith(("LDS", "LDG")) for o in ops)):
             continue
-        counts = collections.Counter(ops)
-        loops.append({
-            "rows_per_trip": rows,
-            "instructions_per_row": len(ops) / rows,
-            "opcodes_per_row": {k: v / rows for k, v in counts.most_common()},
-            "memory": "shared" if any(o.startswith("LDS") for o in ops)
-            else "global",
-        })
+        loops.append(_loop_row(ops, rows))
     return sorted(loops, key=lambda r: -r["rows_per_trip"])
 
 
 def tri_loops(insns: list[tuple[int, str]]) -> list[dict]:
-    """The innermost loops of one function that sweep triangle rows, in
-    address order: loops that read rows (``LDS`` or ``LDG``) and hold one
-    ``MUFU.RCP`` a row (the key's reciprocal) and no ``SHFL`` (the radix
-    route's exchange loops are not sweeps). Per loop: rows per trip,
+    """The innermost loops of one function that sweep triangle rows per
+    lane, in address order: loops that read rows (``LDS`` or ``LDG``) and
+    hold one ``MUFU.RCP`` a row (the key's reciprocal), no ``SHFL`` (the
+    radix route's exchange loops are not sweeps) and no ``REDUX`` (the
+    cooperative loops, ``coop_loops``). Per loop: rows per trip,
     instructions and opcodes per row, the memory the rows come from, and
     whether it holds a ``CALL``, ``BSSY`` or ``BSYNC``."""
     loops = []
     for lo, ops in _innermost_loops(insns):
         rows = ops.count("MUFU.RCP")
-        if (rows == 0 or "SHFL" in ops
+        if (rows == 0 or "SHFL" in ops or "REDUX" in ops
                 or not any(o.startswith(("LDS", "LDG")) for o in ops)):
             continue
-        counts = collections.Counter(ops)
-        loops.append({
-            "address": lo,
-            "rows_per_trip": rows,
-            "instructions_per_row": len(ops) / rows,
-            "opcodes_per_row": {k: v / rows for k, v in counts.most_common()},
-            "memory": "shared" if any(o.startswith("LDS") for o in ops)
-            else "global",
-            "branches_out": any(o in ("CALL", "BSSY", "BSYNC") for o in ops),
-        })
+        loops.append({"address": lo, **_loop_row(ops, rows)})
     return sorted(loops, key=lambda r: r["address"])
 
 
@@ -171,7 +190,8 @@ def tri_sass_counts(dump: str | None = None) -> dict:
         if dump:
             with open(os.path.join(dump, f"{label}.sass"), "w") as f:
                 f.writelines(f"{a:06x} {t}\n" for a, t in listing[names[0]])
-        out[label] = {"function": names[0], "loops": loops}
+        out[label] = {"function": names[0], "loops": loops,
+                      "coop": coop_loops(listing[names[0]], "MUFU.RCP")}
     return out
 
 
@@ -184,7 +204,23 @@ def describe_tri_sass(label: str, r: dict) -> str:
                      f"{lp['instructions_per_row']:.2f} a row"
                      f"{', branches out' if lp['branches_out'] else ''}: "
                      f"{ops}]")
-    return f"{label}: {len(r['loops'])} triangle loop(s) " + " ".join(parts)
+    return (f"{label}: {len(r['loops'])} triangle loop(s) " + " ".join(parts)
+            + describe_coop(r.get("coop", [])))
+
+
+def describe_coop(loops: list[dict]) -> str:
+    """The cooperative loops of a kernel, per row ("" where it has none)."""
+    if not loops:
+        return ""
+    parts = []
+    for lp in loops:
+        ops = " ".join(f"{k} {v:g}" for k, v in lp["opcodes_per_row"].items())
+        parts.append(f"[{lp['rows_per_trip']} rows a lane a trip, "
+                     f"{lp['redux_per_trip']} REDUX, "
+                     f"{lp['instructions_per_row']:.2f} a row"
+                     f"{', branches out' if lp['branches_out'] else ''}: "
+                     f"{ops}]")
+    return f"; {len(loops)} cooperative loop(s) " + " ".join(parts)
 
 
 def sass_counts(dump: str | None = None) -> dict:
@@ -209,23 +245,31 @@ def sass_counts(dump: str | None = None) -> dict:
             with open(os.path.join(dump, f"{label}.sass"), "w") as f:
                 f.writelines(f"{a:06x} {t}\n"
                              for a, t in listings[lib][names[0]])
-        shared = [lp for lp in loops if lp["memory"] == "shared"]
-        if not shared:
+        # The main per-lane loop: four rows a trip over shared memory (the
+        # chunked bodies sweep their chunks cooperatively and have none).
+        shared = [lp for lp in loops if lp["memory"] == "shared"
+                  and lp["rows_per_trip"] == 4]
+        coop = coop_loops(listings[lib][names[0]], "MUFU.RSQ")
+        if not shared and not coop:
             raise AssertionError(f"probe_sweep: no shared-memory sweep loop "
                                  f"in {label}")
         out[label] = {"function": names[0], "loops": loops,
-                      "main": shared[0]}
+                      "main": shared[0] if shared else None, "coop": coop}
     return out
 
 
 def describe_sass(label: str, r: dict) -> str:
-    """One line: the kernel's main sweep loop (its largest over shared
-    memory) per row."""
+    """One line: the kernel's main per-lane sweep loop (four rows a trip
+    over shared memory) per row, and its cooperative loops."""
     main = r["main"]
-    ops = " ".join(f"{k} {v:g}" for k, v in main["opcodes_per_row"].items())
-    return (f"{label}: {len(r['loops'])} sweep loop(s); main "
-            f"{main['rows_per_trip']} rows a trip, "
-            f"{main['instructions_per_row']:.2f} instructions a row: {ops}")
+    head = f"{label}: {len(r['loops'])} sweep loop(s)"
+    if main is not None:
+        ops = " ".join(f"{k} {v:g}"
+                       for k, v in main["opcodes_per_row"].items())
+        head += (f"; main {main['rows_per_trip']} rows a trip, "
+                 f"{main['instructions_per_row']:.2f} instructions a row: "
+                 f"{ops}")
+    return head + describe_coop(r["coop"])
 
 
 def occupancy(tables: rtrace.SceneTables, entry: str = "regen") -> int:

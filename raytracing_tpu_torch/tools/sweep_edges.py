@@ -41,6 +41,12 @@ outside that range: its rays leave the world origin with directions of
 length about 2^-60 (``TINY_FOCUS``), so ``a`` = |d|^2 is about 2^-120 and a
 hit's ``delta`` (at most ``a * r^2``, r <= 2) lies below 2^-101. The
 camera sits at the origin so that the tiny pixel offsets stay exact.
+
+The triangle key's reciprocal (``key_rcp``) has its own range: where
+b = bf16(|det|) reaches 2^126 it is not the IEEE reciprocal, and the
+triangle sweeps sweep that window again with the IEEE divide.
+``scaled_mesh(builder)`` puts a mesh scaled to 2^66 (``SCALED``) in front
+of ``scaled_camera()``, so that the rays that reach it carry such keys.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ TINY = np.float32(2.0 ** -63)
 RAYS = 1024
 PADDED_ROWS = 2048
 TINY_FOCUS = 2.0 ** -60
+SCALED = 2.0 ** 66
 
 
 def add_spheres(builder):
@@ -128,6 +135,38 @@ def tiny_camera(width: int = 64, spp: int = 2, depth: int = 4):
         aspect_ratio=16.0 / 9.0, image_width=width, samples_per_pixel=spp,
         max_depth=depth, vertical_fov=70.0, defocus_angle=0.0,
         focus_distance=TINY_FOCUS, lookfrom=(0.0, 0.0, 0.0),
+        lookat=(0.0, 0.0, -1.0))
+
+
+def scaled_mesh(builder):
+    """A ground sphere, a 320-triangle icosphere scaled to ``SCALED`` and
+    set 3 * ``SCALED`` down -z, and one of radius 0.5 at (0, 0, -1.2): 640
+    triangle rows, the two-level triangle rule under
+    ``RT_TWO_LEVEL_MIN=1`` (4 culled blocks of 256 rows). Rays from the
+    world origin that reach the large mesh have |det| = |e1 . (d x e2)| at
+    or past 2^126; returns ``builder``."""
+    from ..scene.mesh import make_icosphere
+
+    verts, faces = make_icosphere(2)
+    scale = np.float32(SCALED)
+    builder.add_lambertian_sphere((0.0, -100.5, -1.0), 100.0,
+                                  (0.5, 0.5, 0.5))
+    builder.add_mesh(verts * scale + np.float32([0.0, 0.0, -3.0]) * scale,
+                     faces, albedo=(0.8, 0.6, 0.3))
+    builder.add_mesh(verts * 0.5 + np.float32([0.0, 0.0, -1.2]), faces,
+                     albedo=(0.3, 0.6, 0.8))
+    return builder
+
+
+def scaled_camera(width: int = 64, spp: int = 2, depth: int = 4):
+    """The port's ``CameraParameters`` at the world origin looking down -z
+    at both meshes of ``scaled_mesh``, without defocus."""
+    from ..core.camera import CameraParameters
+
+    return CameraParameters(
+        aspect_ratio=2.0, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, vertical_fov=55.0, defocus_angle=0.0,
+        focus_distance=1.0, lookfrom=(0.0, 0.0, 0.0),
         lookat=(0.0, 0.0, -1.0))
 
 
