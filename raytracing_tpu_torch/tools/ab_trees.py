@@ -5,7 +5,10 @@ in the tree at first use) on the same scenes, once per fetch route, in
 the given order of trees (``ABBA``: the first tree, the second twice,
 the first again), so that both trees see the card in the same state. The
 route is set through the environment as a user sets it: ``index`` is
-the default route (``RT_GATHER=mxu``), ``radix`` is ``RT_GATHER=radix``.
+the default route (``RT_GATHER=mxu``), ``radix`` is ``RT_GATHER=radix``,
+``windows`` the radix route at the two-level windows alone
+(``RT_TWO_LEVEL_MXU=0``). ``--width`` and ``--spp`` set the renders'
+size (default 1920 and 64; the images below stay 1080p @ 64).
 
 It also renders, once per tree, each scene at 1920x1080 @ 64 spp, depth
 8, seed 0 through that tree's ``Renderer`` and records the SHA-256 of the
@@ -26,7 +29,7 @@ Usage (on the card, from the repository root)::
         --scene cover --scene stress:8192 --scene mesh:3 \\
         --route index --route radix --order ABBA \\
         [--repeats 2] [--rays cover --rays stress:8192] [--ray-reps 5] \\
-        [--out ab.jsonl]
+        [--width 1920] [--spp 64] [--out ab.jsonl]
 
 (a tree is any checkout of the repository, e.g. unpacked from ``git
 archive``).
@@ -48,7 +51,8 @@ import sys
 import tempfile
 
 ROUTES = {"index": {"RT_GATHER": "mxu", "RT_TWO_LEVEL_MXU": "1"},
-          "radix": {"RT_GATHER": "radix", "RT_TWO_LEVEL_MXU": "1"}}
+          "radix": {"RT_GATHER": "radix", "RT_TWO_LEVEL_MXU": "1"},
+          "windows": {"RT_GATHER": "mxu", "RT_TWO_LEVEL_MXU": "0"}}
 
 
 # Run inside a tree (its own package on sys.path): argv = reps, scenes.
@@ -125,12 +129,14 @@ def run_rays(path: str, route: str, scenes: list[str], reps: int) -> list:
             if line.startswith("{")]
 
 
-def run_tree(path: str, route: str, scenes: list[str], repeats: int) -> list:
+def run_tree(path: str, route: str, scenes: list[str], repeats: int,
+             width: int = 1920, spp: int = 64) -> list:
     """profile_render's objects for ``scenes`` in the tree at ``path``."""
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "profile.jsonl")
         cmd = [sys.executable, "-m", "raytracing_tpu_torch.tools.profile_render",
-               "--repeats", str(repeats), "--out", out]
+               "--repeats", str(repeats), "--width", str(width), "--spp",
+               str(spp), "--out", out]
         for s in scenes:
             cmd += ["--scene", s]
         env = {**os.environ, **ROUTES[route]}
@@ -153,6 +159,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--rays", action="append", default=[],
                     help="also time this scene's ray batch in each pass")
     ap.add_argument("--ray-reps", type=int, default=5)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--out", help="also append each object here")
     args = ap.parse_args(argv)
     trees = [t.split("=", 1) for t in args.tree]
@@ -171,7 +179,8 @@ def main(argv: list[str] | None = None) -> int:
     for step, letter in enumerate(args.order):
         name, path = trees[ord(letter) - ord("A")]
         for route in args.route:
-            for obj in run_tree(path, route, args.scene, args.repeats):
+            for obj in run_tree(path, route, args.scene, args.repeats,
+                                args.width, args.spp):
                 emit({"pass": step, "tree": name, "route": route, **obj})
                 secs = [r["seconds"] for r in obj["repeats"]]
                 (summary.setdefault(name, {}).setdefault(route, {})

@@ -40,13 +40,25 @@ time of their parts on whole waves.
    mesh:5) under ``-DRT_SWEEP_PROBE=3`` (every loop of the triangle sweep
    twice) and ``-DRT_SWEEP_PROBE=4`` (every triangle row it sweeps loaded
    twice): what each adds to the full build's wave (``added_ms``).
+4. ``rest``: the parts after stage 1, on the five culled scenes (mesh:3,
+   meshes:4, mesh:5, stress:2048, stress:8192), beside the stage-1
+   doublings (``sweep_x2``, ``tri_x2``): ``-DRT_SWEEP_PROBE=5`` both
+   two-level rules' stage 2 twice (folded into stage 1: the row-id pack,
+   min and reduction; before that fold, the per-lane re-sweep of the
+   winning window), ``6`` every cull gate twice, ``7`` the
+   winner fetch and ``shade`` twice, ``8`` the chunked body's per-chunk
+   block vote and barrier twice (``REST_PROBE_BUILDS``; ``csrc/regen.cu``
+   says what each doubles). What each adds to the full build's wave
+   (``added_ms``), in the same ABBA order and with the same bits check.
+   A doubled barrier shows the barrier's own cost, not the wait for the
+   block's slowest warp at it.
 
 Usage (on the card; prints one JSON object)::
 
     python -m raytracing_tpu_torch.tools.probe_sweep [--sass] [--parts]
-        [--tri-parts] [--scene stress:8192 --scene stress:2048
-        --scene cover] [--tri-scene mesh:3 ...] [--spp 8] [--reps 3]
-        [--out probe_sweep.json] [--dump DIR]
+        [--tri-parts] [--rest] [--scene stress:8192 --scene stress:2048
+        --scene cover] [--tri-scene mesh:3 ...] [--rest-scene mesh:3 ...]
+        [--spp 8] [--reps 3] [--out probe_sweep.json] [--dump DIR]
 
 (no mode: ``--sass`` and ``--parts``).
 """
@@ -97,6 +109,15 @@ TRI_SASS_KERNELS = {
 TRI_PROBE_BUILDS = {"full": (), "tri_x2": ("RT_SWEEP_PROBE=3",),
                     "tri_load_x2": ("RT_SWEEP_PROBE=4",)}
 TRI_SCENES = ("mesh:3", "meshes:4", "mesh:5")
+# The parts after stage 1 (see the module docstring), with the stage-1
+# doublings beside them.
+REST_PROBE_BUILDS = {"full": (), "sweep_x2": ("RT_SWEEP_PROBE=2",),
+                     "tri_x2": ("RT_SWEEP_PROBE=3",),
+                     "stage2_x2": ("RT_SWEEP_PROBE=5",),
+                     "gate_x2": ("RT_SWEEP_PROBE=6",),
+                     "fetch_shade_x2": ("RT_SWEEP_PROBE=7",),
+                     "lockstep_x2": ("RT_SWEEP_PROBE=8",)}
+REST_SCENES = ("mesh:3", "meshes:4", "mesh:5", "stress:2048", "stress:8192")
 
 
 def _innermost_loops(insns: list[tuple[int, str]]):
@@ -316,8 +337,9 @@ def _same(a, b) -> bool:
 
 def parts(scenes=SCENES, spp: int = 8, reps: int = 3,
           builds: dict = PROBE_BUILDS) -> dict:
-    """Each scene's wave under every build of ``builds`` (``PROBE_BUILDS``
-    or ``TRI_PROBE_BUILDS``, see the module docstring): median ms by build,
+    """Each scene's wave under every build of ``builds`` (``PROBE_BUILDS``,
+    ``TRI_PROBE_BUILDS`` or ``REST_PROBE_BUILDS``, see the module
+    docstring): median ms by build,
     what each adds to the full build, and the parts."""
     _build.build_all(["regen"], [("regen", d) for d in builds.values()
                                  if d])
@@ -356,7 +378,8 @@ def parts(scenes=SCENES, spp: int = 8, reps: int = 3,
 
 def run(do_sass: bool = True, do_parts: bool = True, scenes=SCENES,
         spp: int = 8, reps: int = 3, dump: str | None = None,
-        do_tri_parts: bool = False, tri_scenes=TRI_SCENES) -> dict:
+        do_tri_parts: bool = False, tri_scenes=TRI_SCENES,
+        do_rest: bool = False, rest_scenes=REST_SCENES) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("probe_sweep measures the card: CUDA is not "
                            "available")
@@ -375,6 +398,8 @@ def run(do_sass: bool = True, do_parts: bool = True, scenes=SCENES,
         res["parts"] = parts(scenes, spp, reps)
     if do_tri_parts:
         res["tri_parts"] = parts(tri_scenes, spp, reps, TRI_PROBE_BUILDS)
+    if do_rest:
+        res["rest"] = parts(rest_scenes, spp, reps, REST_PROBE_BUILDS)
     return res
 
 
@@ -387,17 +412,24 @@ def main(argv: list[str] | None = None) -> int:
                     help="the triangle-twice and load-twice builds on the "
                     "triangle scenes (--tri-scene; default mesh:3, "
                     "meshes:4, mesh:5)")
+    ap.add_argument("--rest", action="store_true",
+                    help="the stage-2, gate, fetch + shade and lock-step "
+                    "builds beside the stage-1 ones on the culled scenes "
+                    "(--rest-scene; default mesh:3, meshes:4, mesh:5, "
+                    "stress:2048, stress:8192)")
     ap.add_argument("--scene", action="append")
     ap.add_argument("--tri-scene", action="append")
+    ap.add_argument("--rest-scene", action="append")
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", help="also write the result as JSON here")
     ap.add_argument("--dump", help="write each counted kernel's SASS here")
     args = ap.parse_args(argv)
-    every = not (args.sass or args.parts or args.tri_parts)
+    every = not (args.sass or args.parts or args.tri_parts or args.rest)
     res = run(args.sass or every, args.parts or every,
               tuple(args.scene or SCENES), args.spp, args.reps, args.dump,
-              args.tri_parts, tuple(args.tri_scene or TRI_SCENES))
+              args.tri_parts, tuple(args.tri_scene or TRI_SCENES),
+              args.rest, tuple(args.rest_scene or REST_SCENES))
     for label, r in res.get("sass", {}).items():
         print(describe_sass(label, r))
     for label, r in res.get("tri_sass", {}).items():
@@ -409,7 +441,8 @@ def main(argv: list[str] | None = None) -> int:
               f"full {r['median_ms']['full']:.3f} ms, staging "
               f"{r['staging_ms']:.3f}, sweep {r['sweep_ms']:.3f}, rest "
               f"{r['rest_ms']:.3f}")
-    for name, r in res.get("tri_parts", {}).items():
+    for name, r in [*res.get("tri_parts", {}).items(),
+                    *res.get("rest", {}).items()]:
         added = ", ".join(f"{b} +{v:.3f}" for b, v in r["added_ms"].items())
         print(f"{name} [{r['variant']}, {r['blocks_per_sm']} blocks/SM] "
               f"{r['slots']} slots @ {r['spp']}: "

@@ -30,9 +30,9 @@ whose table has ``n_pad`` rows, for the staged table sizes that shared
 memory sized to the table makes distinct (128, 256, 512, 1,024).
 
 Past 1,024 rows the chunked bodies sweep the table, and their sweeps
-(the flat rule, and the two-level rule's stage 1 over a chunk and stage 2
-over the winning window from global memory) sweep a chunk again with
-sqrtf where a root fell outside ``fast_root``'s range.
+(the flat rule, and the two-level rule's stage 1 over a chunk with its
+stage 2 folded in) sweep a window again with sqrtf where a root fell
+outside ``fast_root``'s range.
 ``padded_spheres(builder)`` puts ``SPHERES`` into a table of 2,048 rows
 (``PADDED_ROWS``), the rest of the spheres behind the plane z = 3, where
 no ray of ``edge_rays`` or of ``tiny_camera`` goes (each leaves z <= 0

@@ -559,8 +559,8 @@ def test_wrapper_rejects_bad_bound_tables():
 def test_profile_bound_counts_gate_passes():
     # With bound tables the bound's sweep pairs are the plain version's
     # per-ray gate passes on the same wave; without a tally such tables get
-    # no bound; an unculled table counts every real row (+ one window under
-    # the two-level rule).
+    # no bound; an unculled table counts every real row (the two-level
+    # rule's stage 2 is folded into stage 1: no window of its own).
     params, js = _bench("stress:8192")
     origin = rt.derive(params).center
     on, off = _port_tables(js, origin), _port_tables(js, origin, cull=False)
@@ -574,7 +574,7 @@ def test_profile_bound_counts_gate_passes():
     )
     assert pr.bound(on, seg, s)["bound_ms"] is None
     full = pr.bound(off, seg, s)
-    rows = on.n_actual + ttrace.WIN
+    rows = on.n_actual
     assert full["fp32_ops"] == seg * (
         pr.SEGMENT_OPS + rows * pr.SPHERE_PAIR_OPS
     )

@@ -9,11 +9,13 @@ the CPU against the plain version and the JAX package:
   IEEE re-sweep;
 * stage 2 folded into stage 1 (the winning window's row-id key min kept
   beside the packed window key) equals ``_tri_winner``'s two stages,
-  also on adversarial keys and when the hint culled the only hit. The
-  kernel does not fold (it measured slower: a warp re-sweeps window 0
-  whenever one of its lanes missed the mesh with window 0 gated out, and
-  the extra min costs every stage-1 row; PERF.md); the model keeps the
-  proof for the culled sweep's next redesign;
+  also on adversarial keys and when the hint culled the only hit. This
+  per-lane model sweeps window 0 again for a ray that hit nothing; the
+  kernel's fold in the cooperative stage 1 (``tri_stage1_warp``,
+  ``tests/test_torch_stage2_fold.py``) keeps row 0 of window 0 with the
+  miss key instead, which is stage 2's answer wherever the gate keeps its
+  contract (a block it culls holds no key below the ray's best; the case
+  ``culled_window0_hit`` breaks it on purpose);
 * padding rows never give a valid key, and the sweep may stop at the real
   rows;
 * the plain version still matches the JAX package on a mesh whose real

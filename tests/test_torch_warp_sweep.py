@@ -12,8 +12,10 @@ CPU through its plain model ``ops/trace.py::warp_stage1_reference``:
   ranges, and every ``RT_CULL*`` setting;
 * through the plain version it agrees with the JAX package's two-level
   closest hits (``_closest_tri_two_level``, ``_closest_sphere_two_level``):
-  the port's trace and wave with the model in place of stage 1 against
-  the JAX package's, as ``tests/test_torch_large.py`` compares them;
+  the port's trace and wave with the model in place of stage 1, and its
+  folded stage-2 key (``fold=True``) in place of the two-level stage 2,
+  against the JAX package's, as ``tests/test_torch_large.py`` compares
+  them;
 * ``SweepTally``'s per-warp counts (``tools/profile_render.py
   --divergence``) agree with the model's ballots.
 
@@ -306,8 +308,13 @@ def test_divergence_counts_on_a_small_scene():
 
 
 def _with_model(monkeypatch):
-    """The plain version with the model in place of its culled stage 1s."""
+    """The plain version with the model in place of its culled stage 1s,
+    and of the two-level rules' stage 2 on the indexed route: the model's
+    folded key (``fold=True``), as the kernel folds it."""
     tri_plain, sph_plain = ttrace.tri_stage1, ttrace.sphere_stage1
+    tri_winner, sph_winner = ttrace._tri_winner, ttrace._sphere_winner
+    rmask = ttrace.WIN - 1
+    miss2 = ttrace._BIGF_BITS & ~rmask
 
     def tri(tables, rays, hint=None, tally=None):
         if tables.tri_rule != "2l":
@@ -319,8 +326,26 @@ def _with_model(monkeypatch):
             return sph_plain(tables, rays, tally)
         return ttrace.warp_stage1_reference(tables, rays, "sphere")
 
+    def tri_win(tables, rays, hint=None, tally=None, route="index"):
+        if tables.tri_rule != "2l" or route != "index":
+            return tri_winner(tables, rays, hint, tally, route)
+        best, mask, key2 = ttrace.warp_stage1_reference(
+            tables, rays, "tri", hint, fold=True)
+        row = (best & mask).long() * ttrace.WIN + (key2 & rmask).long()
+        return tables.tri.view(torch.int32)[row, :11], key2 < miss2
+
+    def sph_win(tables, rays, tally=None, route="index"):
+        if tables.sphere_rule != "2l" or route != "index":
+            return sph_winner(tables, rays, tally, route)
+        best, mask, key2 = ttrace.warp_stage1_reference(
+            tables, rays, "sphere", fold=True)
+        row = (best & mask).long() * ttrace.WIN + (key2 & rmask).long()
+        return key2 < miss2, row, ttrace._sphere_words(tables)[row]
+
     monkeypatch.setattr(ttrace, "tri_stage1", tri)
     monkeypatch.setattr(ttrace, "sphere_stage1", sph)
+    monkeypatch.setattr(ttrace, "_tri_winner", tri_win)
+    monkeypatch.setattr(ttrace, "_sphere_winner", sph_win)
 
 
 def test_model_through_the_plain_version_matches_jax_triangles(monkeypatch):
