@@ -1,7 +1,8 @@
 """raytracing_tpu_torch: the PyTorch/CUDA port of raytracing_tpu.
 
 The batch render of sphere scenes, textured spheres and triangle meshes
-(glTF included) on an NVIDIA H100, with its hot loop in a CUDA C++ kernel
+(glTF included), resumable from checkpoints, and the interactive
+converge-while-idle session on an NVIDIA H100, with its hot loop in a CUDA C++ kernel
 written for Hopper (``csrc/regen.cu``) and a plain PyTorch version of that
 kernel beside it (``ops/trace.py``). The JAX package
 ``raytracing_tpu`` is the reference; this package never imports JAX.
@@ -10,8 +11,10 @@ kernel beside it (``ops/trace.py``). The JAX package
   scene/     SoA world (torch tensors), JSON world config, meshes + BVH,
              glTF loader
   ops/       scene packing, textures, the regeneration kernel and its build
-  runtime/   wave-planning batch renderer, slot tiling
-  utils/     PNG IO, structured logging
+  runtime/   wave-planning renderer (checkpoints, the frame API), slot
+             tiling, terminal/file displays, the interactive session
+  utils/     PNG IO, structured logging, native host helpers
+  tools/     measurement tools, the orbit demo
   interop    scene/camera state carried across from the JAX package
 """
 

@@ -1,9 +1,16 @@
-"""Command-line batch renderer of the port.
+"""Command-line renderer of the port: batch renders with a live display,
+preview PNGs, checkpoint and resume, a profiler trace, and the interactive
+session.
 
 Usage:
   python -m raytracing_tpu_torch --config data/config/world.config.json \\
-      --width 1200 --spp 8 --out render.png
+      --width 1200 --spp 8 --out render.png [--live] [--checkpoint ck.npz]
   python -m raytracing_tpu_torch --gltf model.glb:2.0:0,1,-3 --out mesh.png
+  python -m raytracing_tpu_torch --interactive [--frames N] \\
+      [--converge-spp 64] [--pipeline 2]
+
+With ``--checkpoint`` an existing checkpoint is loaded and the render
+resumed; the state is saved after the render, and on Ctrl-C (exit 130).
 
 Renders on the CUDA card by default (``--device cuda``) and exits non-zero
 when CUDA is not available; ``--device cpu`` runs the kernels' plain PyTorch
@@ -14,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 
@@ -55,6 +63,57 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "PyTorch versions of the kernels)",
     )
     ap.add_argument(
+        "--live",
+        action="store_true",
+        help="progressive ANSI display in the terminal while rendering",
+    )
+    ap.add_argument(
+        "--preview-dir",
+        help="write preview_NNNN.png snapshots per progress event",
+    )
+    ap.add_argument(
+        "--progress-every",
+        type=int,
+        default=1,
+        help="progress/preview cadence in waves",
+    )
+    ap.add_argument(
+        "--interactive",
+        action="store_true",
+        help="keyboard-driven session (a/d orbit, w/s elevate, +/- zoom, "
+        "r reset, ESC/x quit) instead of a one-shot render",
+    )
+    ap.add_argument(
+        "--frames",
+        type=int,
+        help="with --interactive: stop after N frames (default: until quit; "
+        "one frame when stdin is not a terminal)",
+    )
+    ap.add_argument(
+        "--converge-spp",
+        type=int,
+        help="with --interactive: samples per pixel the held camera "
+        "converges to while idle (default: max(64, --spp)); motion resets "
+        "the accumulation",
+    )
+    ap.add_argument(
+        "--pipeline",
+        type=int,
+        default=2,
+        help="with --interactive: preview copies in flight (presentation "
+        "lags this many frames; 0 = synchronous)",
+    )
+    ap.add_argument(
+        "--checkpoint",
+        help="checkpoint file: loaded (if present) before rendering and "
+        "saved after, and on Ctrl-C",
+    )
+    ap.add_argument(
+        "--profile-dir",
+        help="write a torch.profiler trace of the render "
+        "(trace.json) into this directory",
+    )
+    ap.add_argument(
         "--log-dir",
         help="write a timestamped structured log file",
     )
@@ -86,6 +145,11 @@ def parse_gltf_spec(spec: str) -> tuple[str, float, tuple[float, float, float]]:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_arg_parser().parse_args(argv)
+    if args.checkpoint and not args.checkpoint.endswith(".npz"):
+        # np.savez appends .npz: the existence check and the saved file
+        # must name the same path.
+        args.checkpoint += ".npz"
+    args.progress_every = max(1, args.progress_every)
     try:
         gltf_specs = [parse_gltf_spec(spec) for spec in args.gltf]
     except ValueError as e:
@@ -105,6 +169,7 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
+    from .runtime import display as rdisplay
     from .runtime.renderer import Renderer
     from .scene import config as rconfig
     from .scene.gltf import GLTFError
@@ -150,9 +215,79 @@ def main(argv: list[str] | None = None) -> int:
         cam.image_height, cam.samples_per_pixel, cam.max_depth, args.device,
     )
 
+    if args.interactive:
+        from .runtime.interactive import InteractiveSession
+
+        session = InteractiveSession(
+            scene, cam, seed=args.seed, device=args.device,
+            converge_spp=args.converge_spp, pipeline=args.pipeline,
+        )
+        frames = session.run(max_frames=args.frames)
+        log.info("interactive session: %d frames", frames)
+        if not args.quiet:
+            print(f"\ninteractive session ended after {frames} frames")
+        return 0
+
     renderer = Renderer(scene, cam, seed=args.seed, device=args.device)
-    image = renderer.render()
+    resume = False
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        try:
+            done = renderer.load_checkpoint(args.checkpoint)
+        except ValueError as e:
+            print(f"raytracing_tpu_torch: {args.checkpoint}: {e}",
+                  file=sys.stderr)
+            return 2
+        resume = True
+        log.info("resumed checkpoint %s at %d spp", args.checkpoint, done)
+
+    callbacks = []
+    if args.live:
+        callbacks.append(rdisplay.TerminalDisplay())
+    if args.preview_dir:
+        callbacks.append(rdisplay.FileSequenceDisplay(args.preview_dir))
+    on_progress = None
+    if callbacks:
+        def on_progress(p, _cbs=tuple(callbacks)):
+            for cb in _cbs:
+                cb(p)
+    elif args.checkpoint:
+        # An observer keeps the chunked wave plan, so that Ctrl-C finds
+        # completed waves to save.
+        def on_progress(p):
+            pass
+
+    profiler = None
+    if args.profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if renderer.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+    try:
+        image = renderer.render(
+            on_progress=on_progress,
+            progress_every_chunks=args.progress_every,
+            resume=resume,
+        )
+    except KeyboardInterrupt:
+        if args.checkpoint and renderer.samples_done > 0:
+            renderer.save_checkpoint(args.checkpoint)
+            print(
+                f"\ninterrupted; checkpoint saved at "
+                f"{renderer.samples_done} spp -> {args.checkpoint}",
+                file=sys.stderr,
+            )
+        return 130
+    finally:
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(args.profile_dir, exist_ok=True)
+            trace = os.path.join(args.profile_dir, "trace.json")
+            profiler.export_chrome_trace(trace)
+            log.info("profiler trace -> %s", trace)
     rpng.write_png(args.out, image)
+    if args.checkpoint:
+        renderer.save_checkpoint(args.checkpoint)
     log.info(
         "done: %s (%.2f s, %.1f Mrays/s, %d segments)",
         args.out, renderer.render_time(), renderer.mrays_per_sec(),

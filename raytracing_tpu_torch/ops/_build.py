@@ -6,7 +6,8 @@ library under ``raytracing_tpu_torch/_build/<name>-<hash>/`` (git-ignored;
 the hash covers the source, the headers it includes and the flags, so an
 edited source or header rebuilds) and loaded with ``ctypes``. Nothing here
 runs at import time, and nothing falls back: a missing ``nvcc`` or a failed
-build raises. ``build_all`` runs one ``nvcc`` per source, all at once.
+build raises. ``build_all`` runs one ``nvcc`` per source, all at once;
+``build_host`` builds a host C++ library the same way with ``c++``.
 ``launch`` calls a C launcher on a device's current stream at the least
 host cost a call.
 """
@@ -188,7 +189,31 @@ def build(name: str, defines=()) -> pathlib.Path:
     Concurrent builders serialize on a lock. ``build_info`` keys a build
     with defines as ``name[D1,D2]``."""
     lib = library_path(name, defines)
-    key = _key(name, defines)
+    return _compile(lib, _key(name, defines), lambda out: [
+        _nvcc(), *_flags(defines), "-o", out, str(CSRC / f"{name}.cu"),
+    ])
+
+
+def build_host(name: str, source: pathlib.Path, flags=(), libs=()
+               ) -> pathlib.Path:
+    """Compile the host C++ ``source`` into ``lib<name>.so`` with the
+    system's ``c++`` (``flags`` before the source, ``libs`` after it),
+    cached and locked as ``build`` does, keyed by a hash of the source and
+    the flags; raises when no compiler is found or the build fails."""
+    compiler = shutil.which("c++") or shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError("no C++ compiler (c++ or g++) on the PATH")
+    h = hashlib.sha256(" ".join((*flags, *libs)).encode())
+    h.update(source.read_bytes())
+    lib = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    return _compile(lib, name, lambda out: [
+        compiler, *flags, "-o", out, str(source), *libs,
+    ])
+
+
+def _compile(lib: pathlib.Path, key: str, command) -> pathlib.Path:
+    """Run ``command(tmp_path)`` to build ``lib`` unless it exists, under
+    the lock of its directory; the output is renamed into place."""
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / "build.lock", "a+") as lock:
         fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
@@ -196,15 +221,15 @@ def build(name: str, defines=()) -> pathlib.Path:
             build_info.setdefault(key, {"seconds": 0.0, "ptxas": ""})
             return lib
         tmp = lib.with_suffix(".so.tmp")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = command(str(tmp))
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed building {name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+                f"{os.path.basename(cmd[0])} failed building {key} (exit "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n"
+                f"{proc.stderr}"
             )
         os.replace(tmp, lib)
         build_info[key] = {

@@ -1,4 +1,5 @@
-"""Batch renderer: waves of the regeneration kernel over every pixel slot.
+"""Renderer: waves of the regeneration kernel over every pixel slot, the
+interactive frame API, and checkpoints.
 
 Counterpart of the regeneration-kernel path of
 ``raytracing_tpu/runtime/renderer.py``:
@@ -14,6 +15,15 @@ Counterpart of the regeneration-kernel path of
   every slot's running sum (so any split gives the same bits); the image is
   ``rgb_to_u8(sums * float32(1 / done))`` (a multiply, for byte parity with
   the JAX package), reordered from slots to pixels on the host.
+* The sums, the per-slot ``done`` counts and the sample count live on the
+  instance, updated after every wave (before ``on_progress`` fires), so a
+  render can be checkpointed at any wave (``save_checkpoint``) and resumed
+  (``load_checkpoint``, ``render(resume=True)``) with the same bits.
+* The frame API (``render_frame*``, ``render_frame_accum*``) is one kernel
+  launch a frame plus the tonemap (and a box-downsampled preview) on the
+  same stream, with no host synchronisation; an accumulating frame
+  continues the pose's running sums in place, so k idle frames give the
+  bits of one ``render(spp=k*spp)``.
 
 The JAX package's adaptive 8-spp probe wave and its wall-clock wave target
 exist for a remote TPU runtime's watchdog and are not part of this port.
@@ -22,6 +32,8 @@ exist for a remote TPU runtime's watchdog and are not part of this port.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import threading
 import time
 from typing import Callable
 
@@ -67,6 +79,50 @@ def _slots_to_u8(slot_sum: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
     return rcolor.rgb_to_u8(slot_sum * inv[:, None])
 
 
+def _slots_to_u8_total(slot_sum: torch.Tensor, total: int) -> torch.Tensor:
+    """``_slots_to_u8`` with every slot at ``total`` samples:
+    ``sums * float32(1/total)`` (the scalar is exact in float32)."""
+    inv = float(np.float32(1.0) / np.float32(max(int(total), 1)))
+    return rcolor.rgb_to_u8(slot_sum * inv)
+
+
+def _device_preview(
+    u8: torch.Tensor,
+    slot_ids: torch.Tensor,
+    height: int,
+    width: int,
+    ph: int,
+    pw: int,
+) -> torch.Tensor:
+    """Slot->pixel reorder and (ph, pw) box downsample on ``u8``'s device
+    (the JAX package's ``_device_preview``): padded slots go to a spill row,
+    the frame is edge-padded to ceil box factors so the preview covers all
+    of it, and each cell is ``uint8(mean + 0.5)`` of its box (the box's
+    exact integer sum divided by its size in float32). The caller shrinks
+    (ph, pw) to ceil(h/fy) x ceil(w/fx)."""
+    num_pixels = height * width
+    dev = u8.device
+    ids = torch.clamp(slot_ids.to(torch.int64), max=num_pixels)
+    fb = torch.zeros((num_pixels + 1, 3), dtype=torch.uint8, device=dev)
+    fb.index_copy_(0, ids, u8)
+    img = fb[:-1].reshape(height, width, 3)
+    fy = -(-height // ph)
+    fx = -(-width // pw)
+    rows = torch.clamp(torch.arange(ph * fy, device=dev), max=height - 1)
+    cols = torch.clamp(torch.arange(pw * fx, device=dev), max=width - 1)
+    padded = img[rows][:, cols].to(torch.float32)
+    box = padded.reshape(ph, fy, pw, fx, 3).sum(dim=(1, 3))
+    return (box / float(fy * fx) + 0.5).to(torch.uint8)
+
+
+def _preview_shape(height: int, width: int, rows: int, cols: int):
+    """The preview's (ph, pw): at most (rows, cols), shrunk to the ceil box
+    factors' cover of the frame."""
+    fy = -(-height // min(int(rows), height))
+    fx = -(-width // min(int(cols), width))
+    return -(-height // fy), -(-width // fx)
+
+
 def _slots_to_image(slot_u8: np.ndarray, width: int, height: int) -> np.ndarray:
     """Host-side slot->pixel reorder of the 32x32 tiled slot order (spill
     slots dropped). Equal to scattering by ``tiling.tiled_pixel_ids``, done
@@ -92,13 +148,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_CHECKPOINT_LAYOUT = "slot"
+
+
 class Renderer:
-    """Progressive batch renderer for one scene (spheres, textures,
-    triangles) + camera on one device (``"cuda"``: the Hopper kernel;
-    ``"cpu"``: its plain version). ``gather`` picks the kernel's winner
-    fetch route ("index", "radix" or "windows"; None: the environment's
-    ``RT_GATHER`` and ``RT_TWO_LEVEL_MXU``, read here once); every route
-    gives the same image."""
+    """Progressive renderer for one scene (spheres, textures, triangles) +
+    camera on one device (``"cuda"``: the Hopper kernel; ``"cpu"``: its
+    plain version). ``gather`` picks the kernel's winner fetch route
+    ("index", "radix" or "windows"; None: the environment's ``RT_GATHER``
+    and ``RT_TWO_LEVEL_MXU``, read here once); every route gives the same
+    image.
+
+    ``camera`` may be reassigned (the interactive session moves it every
+    pose): the kernel's host camera vector follows it. The packed tables
+    keep the cull block order of the first pose (front to back from its
+    centre), which changes no bit, only the cull's speed; assign
+    ``params`` with ``camera``, as the checkpoint fingerprint reads it."""
 
     def __init__(
         self,
@@ -114,9 +179,9 @@ class Renderer:
         self.gather = rtrace.gather_route(gather)
         self.scene = scene.to(self.device)
         self.params = camera_params
-        self.camera = rcamera.derive(camera_params, self.device)
         # The kernel takes the camera by value: keep the host copy, so a
         # launch never waits on a device->host read.
+        self._camera = rcamera.derive(camera_params, self.device)
         self._cam_host = rcamera.derive(camera_params).as_vector()
         self.seed = int(seed)
         self.max_rays_per_batch = int(max_rays_per_batch)
@@ -124,13 +189,43 @@ class Renderer:
         self._tables = rtrace.pack_scene(
             self.scene, origin=self._cam_host[9:12]
         )
+        self._scene_hash: bytes | None = None
         self._samples_done = 0
         self._segments = 0
-        self._pending_segments: list[torch.Tensor] = []
+        # (segment count, event): a wave's segment scalar (copied to pinned
+        # host memory on CUDA, with the event that marks the copy done).
+        # The lock guards _segments and this list: the pipelined
+        # interactive session drains it from its worker thread.
+        self._pending_segments: list = []
+        self._seg_lock = threading.Lock()
         self._start_time: float | None = None
         self._end_time: float | None = None
         self._elapsed_base = 0.0
         self._spp_target = 0
+        self._tiles_counter = 0
+        # Render state: per-slot running sums and completed samples.
+        self._image_sum: torch.Tensor | None = None
+        self._done: torch.Tensor | None = None
+        # Frame API state: the absolute sample base of render_frame*, the
+        # per-pose sums and count of render_frame_accum*, and the
+        # per-resolution slot ids and zero done counts.
+        self._frame_sample_base = 0
+        self._frame_accum_sum: torch.Tensor | None = None
+        self._frame_accum_count = 0
+        self._frame_wh: tuple[int, int] | None = None
+        self._frame_ids: torch.Tensor | None = None
+        self._frame_zero_done: torch.Tensor | None = None
+
+    @property
+    def camera(self) -> rcamera.DerivedCamera:
+        return self._camera
+
+    @camera.setter
+    def camera(self, cam: rcamera.DerivedCamera) -> None:
+        """Point the next launch at ``cam`` (derive it on the CPU: a camera
+        on the card costs one device->host read here)."""
+        self._camera = cam
+        self._cam_host = cam.as_vector().cpu()
 
     # -- metric API ------------------------------------------------------
     @property
@@ -151,17 +246,46 @@ class Renderer:
             return 0.0
         return min(self._samples_done / self._spp_target, 1.0)
 
+    def _track(self, segments: torch.Tensor) -> None:
+        """Queue a launch's segment scalar; on CUDA it is copied to pinned
+        host memory behind the launch, with an event to test it by."""
+        event = None
+        if segments.device.type == "cuda":
+            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            host.copy_(segments, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(segments.device))
+            segments = host
+        with self._seg_lock:
+            self._pending_segments.append((segments, event))
+
     @property
     def segments_traced(self) -> int:
-        """Total ray segments traced (int64; the Mrays/s numerator)."""
-        if self._pending_segments:
+        """Total ray segments traced (int64; the Mrays/s numerator). Waits
+        for every queued launch's count."""
+        with self._seg_lock:
             pending, self._pending_segments = self._pending_segments, []
-            self._segments += int(torch.stack(pending).sum().item())
-        return self._segments
+            for count, event in pending:
+                if event is not None:
+                    event.synchronize()
+                self._segments += int(count)
+            return self._segments
+
+    @property
+    def segments_traced_ready(self) -> int:
+        """``segments_traced`` without waiting: folds in, in launch order,
+        only the counts whose launches have finished (``Event.query``; CPU
+        counts are always ready), so the interactive display never stalls
+        the frame pipeline. The count catches up as launches complete."""
+        with self._seg_lock:
+            pend = self._pending_segments
+            while pend and (pend[0][1] is None or pend[0][1].query()):
+                self._segments += int(pend.pop(0)[0])
+            return self._segments
 
     def render_time(self) -> float:
         """Elapsed wall-clock seconds: running until the render completes,
-        then frozen."""
+        then frozen; across a checkpoint and resume, the runs' sum."""
         if self._start_time is None:
             return self._elapsed_base
         end = self._end_time if self._end_time is not None else time.perf_counter()
@@ -172,13 +296,21 @@ class Renderer:
         return (self.segments_traced / t) / 1.0e6 if t > 0 else 0.0
 
     def reseed(self, seed: int) -> None:
-        """Point the next render at a fresh RNG stream (drops the counters
-        of the previous render)."""
+        """Point the next render at a fresh RNG stream: drops the counters,
+        the accumulated sums (a render under one seed cannot resume another
+        seed's samples) and the frame accumulation."""
         self.seed = int(seed)
         self._samples_done = 0
-        self._segments = 0
-        self._pending_segments = []
+        with self._seg_lock:
+            self._segments = 0
+            self._pending_segments = []
         self._elapsed_base = 0.0
+        self._tiles_counter = 0
+        self._image_sum = None
+        self._done = None
+        self._frame_sample_base = 0
+        self._frame_accum_sum = None
+        self._frame_accum_count = 0
 
     # -- work decomposition ------------------------------------------------
     def _plan(
@@ -197,16 +329,18 @@ class Renderer:
         return block, chunk_spp
 
     def _waves(
-        self, spp: int, max_depth: int, has_observer: bool = False
+        self, spp: int, max_depth: int, has_observer: bool = False,
+        start: int = 0,
     ) -> tuple[list[int], dict]:
-        """The waves of a render: their cumulative targets ``t_end`` and the
-        other ``render_pixels_fused`` arguments, which every wave shares."""
+        """The waves of a render from ``start`` completed samples: their
+        cumulative targets ``t_end`` and the other ``render_pixels_fused``
+        arguments, which every wave shares."""
         cam = self.camera
         block, chunk_spp = self._plan(
             spp, rtiling.num_slots(cam.image_width, cam.image_height),
             has_observer=has_observer,
         )
-        t_ends = list(range(chunk_spp, spp, chunk_spp)) + [spp]
+        t_ends = list(range(start + chunk_spp, spp, chunk_spp)) + [spp]
         meta = dict(
             slot_base=0,
             map_param=rtiling.tiles_per_row(cam.image_width),
@@ -227,8 +361,24 @@ class Renderer:
         *,
         on_progress: ProgressCallback | None = None,
         progress_every_chunks: int = 1,
-    ) -> np.ndarray:
-        """Render the full image; returns ``uint8[H, W, 3]``."""
+        resume: bool = False,
+        as_device_array: bool = False,
+    ):
+        """Render the full image; returns ``uint8[H, W, 3]``.
+
+        With ``resume=True`` (after a render or ``load_checkpoint``) the
+        accumulated sums and per-slot counts are kept and only what is left
+        up to ``spp`` is traced. Every wave continues each slot's running
+        sum in sample order, so a resumed render is byte-equal to an
+        uninterrupted one whatever wave it was stopped after (stronger than
+        the JAX package's equality when the chunking matches). A state that
+        already holds ``spp`` or more samples is returned as it is,
+        normalised per slot.
+
+        With ``as_device_array=True`` the uint8 image stays on the device in
+        slot order, with no host synchronisation; ``fetch_image`` brings it
+        to the host.
+        """
         spp = int(spp if spp is not None else self.params.samples_per_pixel)
         max_depth = int(
             max_depth if max_depth is not None else self.params.max_depth
@@ -242,23 +392,30 @@ class Renderer:
             return np.zeros((cam.image_height, cam.image_width, 3), np.uint8)
 
         num_pixels = self.pixels_count
+        resuming = (
+            resume and self._image_sum is not None and self._samples_done > 0
+        )
+        start = self._samples_done if resuming else 0
         t_ends, meta = self._waves(
-            spp, max_depth, has_observer=on_progress is not None
+            spp, max_depth, has_observer=on_progress is not None, start=start
         )
         block = meta["num_slots"]
         dev = self.device
-        image_sum = torch.zeros((block, 3), dtype=torch.float32, device=dev)
-        done = torch.zeros((block,), dtype=torch.int32, device=dev)
+        if resuming:
+            image_sum, done = self._image_sum, self._done
+            if start >= spp:
+                u8 = _slots_to_u8(image_sum, done)
+                return u8 if as_device_array else self.fetch_image(u8)
+        else:
+            image_sum = torch.zeros((block, 3), dtype=torch.float32, device=dev)
+            done = torch.zeros((block,), dtype=torch.int32, device=dev)
+            with self._seg_lock:
+                self._segments = 0
+                self._pending_segments = []
+            self._elapsed_base = 0.0
+            self._tiles_counter = 0
 
-        def to_host_image(u8: torch.Tensor) -> np.ndarray:
-            return _slots_to_image(
-                u8.cpu().numpy(), cam.image_width, cam.image_height
-            )
-
-        self._segments = 0
-        self._pending_segments = []
-        self._elapsed_base = 0.0
-        self._samples_done = 0
+        self._samples_done = start
         self._start_time = time.perf_counter()
         self._end_time = None
         for chunk_index, t_end in enumerate(t_ends, start=1):
@@ -270,8 +427,11 @@ class Renderer:
                 radiance_sum=image_sum,
                 **meta,
             )
-            self._pending_segments.append(segments)
+            self._track(segments)
+            # The state a checkpoint saves, current before the callback.
+            self._image_sum, self._done = image_sum, done
             self._samples_done = t_end
+            self._tiles_counter += block // rtrace.TILE_SLOTS
             if on_progress is not None and (
                 chunk_index % progress_every_chunks == 0 or t_end >= spp
             ):
@@ -283,15 +443,250 @@ class Renderer:
                         pixels_count=num_pixels,
                         segments_traced=self.segments_traced,
                         elapsed_s=self.render_time(),
-                        _preview=lambda s=snap: to_host_image(s),
+                        _preview=lambda s=snap: self.fetch_image(s),
                     )
                 )
 
-        image = to_host_image(_slots_to_u8(image_sum, done))
-        segments_total = self.segments_traced  # synchronizes the device
+        u8 = _slots_to_u8(image_sum, done)
+        image = None if as_device_array else self.fetch_image(u8)
+        if not as_device_array:
+            self.segments_traced  # waits for the last launch's count
         self._end_time = time.perf_counter()
         self._elapsed_base = self.render_time()
         self._start_time = None
         self._end_time = None
-        self._segments = segments_total
-        return image
+        return u8 if as_device_array else image
+
+    def fetch_image(self, u8: torch.Tensor) -> np.ndarray:
+        """A device u8 image in slot order (``render(as_device_array=True)``,
+        ``render_frame*``) -> host ``uint8[H, W, 3]``; a preview (already
+        ``[h, w, 3]``) comes back as it is."""
+        arr = u8.cpu().numpy()
+        if arr.ndim == 2:
+            return _slots_to_image(
+                arr, self.camera.image_width, self.camera.image_height
+            )
+        return arr
+
+    # -- interactive frames ------------------------------------------------
+    def _frame_setup(self, spp, max_depth):
+        """The frame API's prologue: (spp, max_depth, slots), and the
+        per-resolution slot ids (for the device preview) and zero done
+        counts, made once per (W, H) and kept on the device."""
+        spp = int(spp if spp is not None else self.params.samples_per_pixel)
+        max_depth = int(
+            max_depth if max_depth is not None else self.params.max_depth
+        )
+        cam = self.camera
+        wh = (cam.image_width, cam.image_height)
+        slots = rtiling.num_slots(*wh)
+        if self._frame_wh != wh:
+            self._frame_wh = wh
+            self._frame_ids = torch.from_numpy(
+                rtiling.tiled_pixel_ids(*wh)
+            ).to(self.device)
+            self._frame_zero_done = torch.zeros(
+                slots, dtype=torch.int32, device=self.device
+            )
+        return spp, max_depth, slots
+
+    def _frame_launch(self, spp, max_depth, slots, sample_start,
+                      radiance_sum=None) -> torch.Tensor:
+        """One launch: every slot traces samples ``[sample_start,
+        sample_start + spp)``, continuing ``radiance_sum`` (zeros when
+        None); returns the sums."""
+        cam = self.camera
+        rad, segments, _ = rtrace.render_pixels_fused(
+            self._tables,
+            self._cam_host,
+            slot_base=0,
+            map_param=rtiling.tiles_per_row(cam.image_width),
+            seed=self.seed & 0x7FFFFFFF,
+            sample_start=sample_start,
+            spp=spp,
+            max_depth=max_depth,
+            t_end=max(spp, 0),
+            done=self._frame_zero_done,
+            num_slots=slots,
+            pixel_order="tiled",
+            radiance_sum=radiance_sum,
+            gather=self.gather,
+        )
+        self._tiles_counter += slots // rtrace.TILE_SLOTS
+        self._track(segments)
+        return rad
+
+    def _preview(self, u8: torch.Tensor, rows: int, cols: int):
+        cam = self.camera
+        h, w = cam.image_height, cam.image_width
+        ph, pw = _preview_shape(h, w, rows, cols)
+        return _device_preview(u8, self._frame_ids, h, w, ph, pw)
+
+    def render_frame(self, spp: int | None = None,
+                     max_depth: int | None = None) -> torch.Tensor:
+        """One interactive frame: one launch plus the tonemap, returning
+        the device u8 image in slot order without synchronising (pair with
+        ``fetch_image``). Consecutive frames draw fresh samples (the
+        absolute sample base advances by ``spp``)."""
+        spp, max_depth, slots = self._frame_setup(spp, max_depth)
+        rad = self._frame_launch(spp, max_depth, slots,
+                                 self._frame_sample_base)
+        self._frame_sample_base += spp
+        return _slots_to_u8_total(rad, spp)
+
+    def render_frame_preview(
+        self,
+        spp: int | None = None,
+        max_depth: int | None = None,
+        preview_cols: int = 240,
+        preview_rows: int = 136,
+    ):
+        """``render_frame`` plus a device-side box-downsampled preview:
+        ``(dev_slots, dev_preview)``. The preview covers the whole frame;
+        its shape is ceil(H/fy) x ceil(W/fx) <= (preview_rows,
+        preview_cols), fy and fx the ceil box factors."""
+        u8 = self.render_frame(spp, max_depth)
+        return u8, self._preview(u8, preview_rows, preview_cols)
+
+    @property
+    def frame_accum_samples(self) -> int:
+        """Samples accumulated at the current camera pose."""
+        return self._frame_accum_count
+
+    def frame_accum_reset(self) -> None:
+        """Start a fresh accumulation (call when the camera moves); the next
+        accumulating frame starts from zero sums."""
+        self._frame_accum_count = 0
+
+    def render_frame_accum(self, spp: int | None = None,
+                           max_depth: int | None = None):
+        """Accumulating frame: trace ``spp`` fresh samples (absolute ids
+        ``[count, count + spp)``, the samples a one-shot ``render(spp=count
+        + spp)`` with this seed draws) in one launch that continues the
+        pose's running sums in place, and return ``(dev_u8, total)``: the
+        accumulated mean in slot order (no synchronisation) and the pose's
+        sample count after this frame. k frames give the bits of one
+        ``render(spp=total)``. Call ``frame_accum_reset()`` on motion."""
+        spp, max_depth, slots = self._frame_setup(spp, max_depth)
+        count = self._frame_accum_count
+        self._frame_accum_sum = self._frame_launch(
+            spp, max_depth, slots, count, self._accum_buffer(slots)
+        )
+        self._frame_accum_count = count + spp
+        return (_slots_to_u8_total(self._frame_accum_sum, count + spp),
+                count + spp)
+
+    def render_frame_accum_preview(
+        self,
+        spp: int | None = None,
+        max_depth: int | None = None,
+        preview_cols: int = 240,
+        preview_rows: int = 136,
+    ):
+        """``render_frame_accum`` plus the device-side preview: ``(dev_u8,
+        dev_preview, total)``."""
+        u8, total = self.render_frame_accum(spp, max_depth)
+        return u8, self._preview(u8, preview_rows, preview_cols), total
+
+    def _accum_buffer(self, slots: int) -> torch.Tensor | None:
+        """The pose's running sums, or None (zeros) for a fresh pose; a
+        resolution change without a reset raises."""
+        if self._frame_accum_count == 0:
+            return None
+        if self._frame_accum_sum.shape[0] != slots:
+            raise ValueError(
+                "frame accumulation buffer does not match the current "
+                "resolution; call frame_accum_reset() after resizing"
+            )
+        return self._frame_accum_sum
+
+    # -- checkpoint / resume -----------------------------------------------
+    def _fingerprint(self) -> str:
+        """SHA-1 over every Scene field (tensor dtype, shape and bytes,
+        textures and triangle tables included), the camera parameters but
+        ``samples_per_pixel`` (the budget being resumed) and the seed."""
+        if self._scene_hash is None:
+            h = hashlib.sha1(b"raytracing_tpu_torch.Scene")
+            for f in dataclasses.fields(self.scene):
+                value = getattr(self.scene, f.name)
+                h.update(f.name.encode() + b"\0")
+                if isinstance(value, torch.Tensor):
+                    t = value.detach().cpu().contiguous()
+                    h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+                    h.update(t.numpy().tobytes())
+                else:
+                    h.update(repr(value).encode())
+            self._scene_hash = h.digest()
+        h = hashlib.sha1(self._scene_hash)
+        p = dataclasses.replace(self.params, samples_per_pixel=0)
+        h.update(repr(p).encode())
+        h.update(str(self.seed).encode())
+        return h.hexdigest()
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the accumulated sums, per-slot counts and counters to
+        ``path`` (``.npz`` appended if missing), the JAX package's keys;
+        also mid-render, from an ``on_progress`` callback."""
+        if self._image_sum is None:
+            raise ValueError("nothing rendered yet; no state to checkpoint")
+        if not str(path).endswith(".npz"):
+            path = f"{path}.npz"
+        np.savez_compressed(
+            path,
+            image_sum=self._image_sum.cpu().numpy(),
+            done=self._done.cpu().numpy().reshape(-1, 128),
+            samples_done=self._samples_done,
+            segments=self.segments_traced,
+            tiles_counter=self._tiles_counter,
+            elapsed=self.render_time(),
+            fingerprint=self._fingerprint(),
+            layout=_CHECKPOINT_LAYOUT,
+        )
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint's state; returns the samples already done.
+
+        The checkpoint must come from a renderer with the same scene (every
+        field), camera and seed: the fingerprint is checked, so one written
+        by the JAX package is refused. Resume with ``render(resume=True)``:
+        the kernel's RNG is keyed by (slot, absolute sample), so the resumed
+        render is byte-equal to an uninterrupted one."""
+        if not str(path).endswith(".npz"):
+            path = f"{path}.npz"
+        with np.load(path, allow_pickle=False) as data:
+            if str(data["fingerprint"]) != self._fingerprint():
+                raise ValueError(
+                    "checkpoint fingerprint mismatch (different scene, "
+                    "camera, or seed)"
+                )
+            layout = str(data["layout"]) if "layout" in data else "pixel"
+            if layout != _CHECKPOINT_LAYOUT:
+                raise ValueError(
+                    f"checkpoint framebuffer layout {layout!r} is not the "
+                    f"regeneration kernel's {_CHECKPOINT_LAYOUT!r} layout"
+                )
+            rows = int(data["image_sum"].shape[0])
+            cam = self.camera
+            want = rtiling.num_slots(cam.image_width, cam.image_height)
+            if rows != want:
+                raise ValueError(
+                    f"checkpoint framebuffer has {rows} rows but this "
+                    f"renderer expects {want}"
+                )
+            if "done" not in data or data["done"].shape != (want // 128, 128):
+                raise ValueError(
+                    f"checkpoint done array must be [{want // 128}, 128]"
+                )
+            image_sum = data["image_sum"].astype(np.float32)
+            done = data["done"].astype(np.int32).reshape(-1)
+            self._image_sum = torch.from_numpy(image_sum).to(self.device)
+            self._done = torch.from_numpy(done).to(self.device)
+            self._samples_done = int(data["samples_done"])
+            with self._seg_lock:
+                self._segments = int(data["segments"])
+                self._pending_segments = []
+            self._tiles_counter = int(data["tiles_counter"])
+            self._elapsed_base = float(data["elapsed"])
+        self._start_time = None
+        self._end_time = None
+        return self._samples_done

@@ -1,8 +1,10 @@
 """Minimal dependency-free PNG writer and reader (zlib + struct).
 
-Copy of ``raytracing_tpu/utils/png.py`` without its optional native encoder:
-8-bit grayscale/RGB/RGBA encoding with filter 0, and a decoder for the
-subset this package and the JAX package write (filters 0 and 4).
+Copy of ``raytracing_tpu/utils/png.py``: 8-bit RGB at the default level goes
+through the native encoder (``utils/native.py``: Paeth filter, built from
+``native/rtnative.cc``) where it is available; this writer (filter 0) is the
+fallback and handles grayscale, RGBA and other levels. The decoder reads
+the subset this package and the JAX package write (filters 0 and 4).
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ def encode_png(image: np.ndarray, *, compress_level: int = 6) -> bytes:
         raise ValueError(f"expected [H, W, {{1,3,4}}] image, got shape {image.shape}")
 
     height, width, channels = image.shape
+    if channels == 3 and compress_level == 6:
+        # The native encoder's zlib level is 6.
+        from . import native
+
+        if native.available():
+            return native.png_encode(image)
     color_type = _COLOR_TYPES[channels]
 
     def chunk(tag: bytes, payload: bytes) -> bytes:
