@@ -1,18 +1,25 @@
 """raytracing_tpu_torch: the PyTorch/CUDA port of raytracing_tpu.
 
 The batch render of sphere scenes, textured spheres and triangle meshes
-(glTF included), resumable from checkpoints, and the interactive
-converge-while-idle session on an NVIDIA H100, with its hot loop in a CUDA C++ kernel
-written for Hopper (``csrc/regen.cu``) and a plain PyTorch version of that
-kernel beside it (``ops/trace.py``). The JAX package
+(glTF included), resumable from checkpoints, sharded over a (px, spp)
+device mesh, and the interactive converge-while-idle session on an NVIDIA
+H100, with its hot loop in a CUDA C++ kernel written for Hopper
+(``csrc/regen.cu``) and a plain PyTorch version of that kernel beside it
+(``ops/trace.py``); and the portable wavefront backend (``backend="xla"``,
+plain PyTorch, as the JAX package's is plain XLA). The JAX package
 ``raytracing_tpu`` is the reference; this package never imports JAX.
 
-  core/      thin-lens camera frame, color pipe
+  core/      thin-lens camera frame and ray generation, color pipe,
+             vector math, threefry RNG
   scene/     SoA world (torch tensors), JSON world config, meshes + BVH,
              glTF loader
-  ops/       scene packing, textures, the regeneration kernel and its build
-  runtime/   wave-planning renderer (checkpoints, the frame API), slot
-             tiling, terminal/file displays, the interactive session
+  ops/       scene packing, textures, the regeneration kernel and its
+             build; the wavefront's intersection and scattering
+  models/    the wavefront integrator
+  parallel/  the (px, spp) device mesh and the sharded renders
+  runtime/   wave-planning renderer (both backends, a mesh, checkpoints,
+             the frame API), slot tiling, terminal/file displays, the
+             interactive session
   utils/     PNG IO, structured logging, native host helpers
   tools/     measurement tools, the orbit demo
   interop    scene/camera state carried across from the JAX package

@@ -8,6 +8,7 @@ Usage:
   python -m raytracing_tpu_torch --gltf model.glb:2.0:0,1,-3 --out mesh.png
   python -m raytracing_tpu_torch --interactive [--frames N] \\
       [--converge-spp 64] [--pipeline 2]
+  python -m raytracing_tpu_torch --backend xla --width 320 --spp 4
 
 With ``--checkpoint`` an existing checkpoint is loaded and the render
 resumed; the state is saved after the render, and on Ctrl-C (exit 130).
@@ -61,6 +62,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="torch device to render on (default cuda; cpu runs the plain "
         "PyTorch versions of the kernels)",
+    )
+    ap.add_argument(
+        "--backend",
+        choices=("auto", "pallas", "xla"),
+        default="auto",
+        help="integrator backend: pallas, the regeneration kernel (auto "
+        "picks it on every device), or xla, the portable wavefront",
     )
     ap.add_argument(
         "--live",
@@ -220,7 +228,8 @@ def main(argv: list[str] | None = None) -> int:
 
         session = InteractiveSession(
             scene, cam, seed=args.seed, device=args.device,
-            converge_spp=args.converge_spp, pipeline=args.pipeline,
+            backend=args.backend, converge_spp=args.converge_spp,
+            pipeline=args.pipeline,
         )
         frames = session.run(max_frames=args.frames)
         log.info("interactive session: %d frames", frames)
@@ -228,7 +237,8 @@ def main(argv: list[str] | None = None) -> int:
             print(f"\ninteractive session ended after {frames} frames")
         return 0
 
-    renderer = Renderer(scene, cam, seed=args.seed, device=args.device)
+    renderer = Renderer(scene, cam, seed=args.seed, device=args.device,
+                        backend=args.backend)
     resume = False
     if args.checkpoint and os.path.exists(args.checkpoint):
         try:

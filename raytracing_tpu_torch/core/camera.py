@@ -4,8 +4,8 @@ Counterpart of ``raytracing_tpu/core/camera.py`` (``CameraParameters``,
 ``DerivedCamera``, ``derive``). The frame is computed once per render on the
 host in numpy float32, with the same operations in the same order as the
 JAX package, so both packages hand bit-equal camera vectors to their
-kernels. Batched ray generation lives inside the regeneration kernel
-(``ops/trace.py``), not here.
+kernels. ``generate_rays`` is the wavefront backend's batched ray
+generation (the regeneration kernel makes its own rays, ``ops/trace.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from . import rng as _rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +118,42 @@ def derive(params: CameraParameters, device="cpu") -> DerivedCamera:
         image_width=width,
         image_height=height,
     )
+
+
+def generate_rays(
+    cam: DerivedCamera,
+    keys: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched camera rays of the wavefront backend: a jittered sample
+    inside pixel ``(px, py)`` (``STREAM_CAM_JITTER``), seen from a point on
+    the defocus disk (``STREAM_CAM_DISK``) where ``defocus_angle > 0``,
+    else from the camera center.
+
+    ``keys`` are the rays' ``(B, 2)`` RNG keys, ``px``/``py`` their integer
+    column and row (y down). Returns ``(origins, directions)``, each
+    ``(B, 3)`` float32 on ``keys``' device; directions are not normalised.
+    """
+    dev = keys.device
+    f = {n: getattr(cam, n).to(dev) for n in (
+        "pixel00", "pixel_delta_u", "pixel_delta_v", "center",
+        "defocus_disk_u", "defocus_disk_v", "defocus_angle")}
+    jitter = _rng.sample_square(_rng.fold(keys, _rng.STREAM_CAM_JITTER))
+    fx = px.to(torch.float32) + jitter[:, 0]
+    fy = py.to(torch.float32) + jitter[:, 1]
+    pixel_sample = (
+        f["pixel00"]
+        + fx[:, None] * f["pixel_delta_u"]
+        + fy[:, None] * f["pixel_delta_v"]
+    )
+    disk = _rng.in_unit_disk(_rng.fold(keys, _rng.STREAM_CAM_DISK))
+    disk_origin = (
+        f["center"]
+        + disk[:, 0:1] * f["defocus_disk_u"]
+        + disk[:, 1:2] * f["defocus_disk_v"]
+    )
+    origin = torch.where(f["defocus_angle"] > 0.0, disk_origin,
+                         f["center"].expand_as(disk_origin))
+    direction = pixel_sample - origin
+    return origin, direction

@@ -12,8 +12,10 @@ Controls:  a/d orbit  w/s elevate  +/- zoom  r reset  ESC or x quit.
 
 The session logic is split from the TTY plumbing, so tests drive
 ``handle_key`` and ``step`` directly. ``device`` picks the card ("cuda",
-the default) or the plain version ("cpu"); the JAX package's XLA backend
-has no counterpart here yet.
+the default) or the plain version ("cpu"); ``backend`` the renderer's
+("auto" / "pallas": the frame API, one kernel launch a frame; "xla": the
+wavefront, whose idle frames accumulate through ``render(resume=True)``
+and whose pose changes reseed the renderer with its own seed).
 """
 
 from __future__ import annotations
@@ -117,13 +119,15 @@ class InteractiveSession:
         *,
         seed: int = 0,
         device="cuda",
+        backend: str = "auto",
         spp: int | None = None,
         converge_spp: int | None = None,
         pipeline: int = 0,
         stream=None,
     ) -> None:
         self.params = params
-        self.renderer = Renderer(scene, params, seed=seed, device=device)
+        self.renderer = Renderer(scene, params, seed=seed, device=device,
+                                 backend=backend)
         self.spp = int(spp if spp is not None else params.samples_per_pixel)
         # While the camera is idle every frame accumulates more samples at
         # the held pose until ``converge_spp``; motion resets the
@@ -139,8 +143,8 @@ class InteractiveSession:
         self._last_pose: tuple | None = None
         self._idle_chunk = self.spp
         self._last_img: np.ndarray | None = None
-        # The newest dispatched frame's u8 slots on the device (the full
-        # image: ``renderer.fetch_image(session.last_frame)``).
+        # The newest dispatched frame's u8 image on the device (slots, or
+        # [H, W, 3] for xla; ``renderer.fetch_image(session.last_frame)``).
         self.last_frame: torch.Tensor | None = None
         # ``pipeline`` frames in flight: the main thread queues each
         # preview's copy to host memory behind its frame's launch
@@ -206,7 +210,9 @@ class InteractiveSession:
     @property
     def samples_at_pose(self) -> int:
         """Samples accumulated at the current camera pose."""
-        return self.renderer.frame_accum_samples
+        if self.renderer.backend == "pallas":
+            return self.renderer.frame_accum_samples
+        return self.renderer.samples_done
 
     @property
     def converged(self) -> bool:
@@ -240,7 +246,12 @@ class InteractiveSession:
             # Derived on the host: the setter then reads no device memory.
             self.renderer.camera = rcamera.derive(params)
             self._idle_chunk = self.spp
-            self.renderer.frame_accum_reset()
+            if self.renderer.backend == "pallas":
+                self.renderer.frame_accum_reset()
+            else:
+                # The xla path accumulates through render(resume=True);
+                # reseeding with the same seed drops the sums.
+                self.renderer.reseed(self.renderer.seed)
         remaining = self.converge_spp - self.samples_at_pose
         if remaining > 0:
             # Idle chunks grow (x2 a consecutive idle frame, capped at 4x
@@ -250,24 +261,37 @@ class InteractiveSession:
             cap = max(self.spp, min(self._idle_chunk, 4 * self.spp))
             self._idle_chunk = cap * 2
             chunk = min(cap, remaining)
-            dev, prev, total = self.renderer.render_frame_accum_preview(
-                spp=chunk
-            )
-            self.last_frame = dev
-            if self._pool is not None:
-                staged = self._copies.stage(prev)
-                self._pending.append(
-                    self._pool.submit(self._emit, staged, total)
-                )
-                img = self._last_img
-                while len(self._pending) > self.pipeline:
-                    img = self._pending.pop(0).result()
+            if self.renderer.backend == "pallas":
+                img = self._frame(chunk)
             else:
-                img = self._emit((prev.cpu(), None), total)
+                # The wavefront: a synchronous resumed render, presented
+                # whole (no frame API, no pipeline).
+                total = self.samples_at_pose + chunk
+                self.last_frame = self.renderer.render(
+                    spp=total, resume=True, as_device_array=True)
+                img = self.renderer.fetch_image(self.last_frame)
+                self._present(img, total)
+                self._last_img = img
         else:
             img = self.flush()
             self._present(img, self.samples_at_pose)
         self.frames_rendered += 1
+        return img
+
+    def _frame(self, chunk: int) -> np.ndarray | None:
+        """One accumulating kernel frame of ``chunk`` samples; its preview
+        presented now, or on the pipeline's worker."""
+        dev, prev, total = self.renderer.render_frame_accum_preview(
+            spp=chunk
+        )
+        self.last_frame = dev
+        if self._pool is None:
+            return self._emit((prev.cpu(), None), total)
+        staged = self._copies.stage(prev)
+        self._pending.append(self._pool.submit(self._emit, staged, total))
+        img = self._last_img
+        while len(self._pending) > self.pipeline:
+            img = self._pending.pop(0).result()
         return img
 
     def flush(self) -> np.ndarray | None:

@@ -25,6 +25,29 @@ Counterpart of the regeneration-kernel path of
   continues the pose's running sums in place, so k idle frames give the
   bits of one ``render(spp=k*spp)``.
 
+Two backends, the JAX package's names: ``"pallas"`` is the regeneration
+kernel above (``"auto"`` picks it on every device: the hand-written kernel
+is what the port exists for, and its plain version runs on the CPU; the
+JAX package picks ``"xla"`` off a TPU); ``"xla"`` is the portable
+wavefront (``models/integrator.py``), waves of (pixel block x sample
+chunk) of at most ``max_rays_per_batch`` rays in linear pixel order,
+whose per-pixel sums go into a pixel-order framebuffer with one spill row
+for padded ids. Each xla wave continues the running sums of its pixels
+(gathered, then written back with ``index_copy_``; real pixel ids are
+unique within a wave), so a resumed xla render is byte-equal to an
+uninterrupted one at any split too (the JAX package adds a per-wave sum,
+equal when the chunking matches). Checkpoints record the layout,
+``"slot"`` (pallas) or ``"pixel"`` (xla), and refuse the other backend's.
+
+With ``mesh=`` (``parallel/mesh.py``) a render is sharded over its (px,
+spp) devices (``parallel/shard.py``): pixel blocks or slots padded to
+divide over ``px``, the samples over ``spp``; under work-ahead each spp
+shard carries its own ``done`` block (the JAX layout, ``(n_spp * slots /
+128, 128)`` in checkpoints) laid out by the budget's split, and a resume
+toward another budget re-splits a state that sits at a sample prefix and
+refuses a ragged one. The frame API is single-device and raises under a
+mesh, as the JAX package's does.
+
 The JAX package's adaptive 8-spp probe wave and its wall-clock wave target
 exist for a remote TPU runtime's watchdog and are not part of this port.
 """
@@ -42,7 +65,10 @@ import torch
 
 from ..core import camera as rcamera
 from ..core import color as rcolor
+from ..core import rng as rrng
+from ..models import integrator
 from ..ops import trace as rtrace
+from ..parallel import shard as rshard
 from ..scene.types import Scene
 from . import tiling as rtiling
 
@@ -77,6 +103,14 @@ def _slots_to_u8(slot_sum: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
     """Per-slot mean through the color pipe: ``sums * float32(1/done)``."""
     inv = torch.reciprocal(torch.clamp(done, min=1).to(torch.float32))
     return rcolor.rgb_to_u8(slot_sum * inv[:, None])
+
+
+def _to_u8(image_sum: torch.Tensor, samples: int, height: int,
+           width: int) -> torch.Tensor:
+    """The xla framebuffer (pixels + spill row) -> u8 ``[H, W, 3]``:
+    ``sums * float32(1.0 / samples)``, the JAX package's ``_to_u8``."""
+    inv = float(np.float32(1.0 / max(int(samples), 1)))
+    return rcolor.rgb_to_u8(image_sum[:-1] * inv).reshape(height, width, 3)
 
 
 def _slots_to_u8_total(slot_sum: torch.Tensor, total: int) -> torch.Tensor:
@@ -125,11 +159,12 @@ def _preview_shape(height: int, width: int, rows: int, cols: int):
 
 def _slots_to_image(slot_u8: np.ndarray, width: int, height: int) -> np.ndarray:
     """Host-side slot->pixel reorder of the 32x32 tiled slot order (spill
-    slots dropped). Equal to scattering by ``tiling.tiled_pixel_ids``, done
+    slots, and padding slots past the image's tiles, dropped). Equal to scattering by ``tiling.tiled_pixel_ids``, done
     as one tile transpose: slot ``(ty, tx, wy, wx)`` is pixel
     ``(ty*32 + wy, tx*32 + wx)``."""
     tpr = rtiling.tiles_per_row(width)
     rows = -(-height // rtiling.TILE_H)
+    slot_u8 = slot_u8[:rows * tpr * rtiling.TILE_H * rtiling.TILE_W]
     tiles = slot_u8.reshape(rows, tpr, rtiling.TILE_H, rtiling.TILE_W, 3)
     img = tiles.transpose(0, 2, 1, 3, 4).reshape(
         rows * rtiling.TILE_H, tpr * rtiling.TILE_W, 3
@@ -148,16 +183,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-_CHECKPOINT_LAYOUT = "slot"
+BACKENDS = ("auto", "pallas", "xla")
+# Checkpoint framebuffer layout by backend.
+_LAYOUT = {"pallas": "slot", "xla": "pixel"}
 
 
 class Renderer:
     """Progressive renderer for one scene (spheres, textures, triangles) +
     camera on one device (``"cuda"``: the Hopper kernel; ``"cpu"``: its
-    plain version). ``gather`` picks the kernel's winner fetch route
+    plain version), or over a ``mesh`` of devices.
+
+    ``backend``: ``"auto"`` or ``"pallas"``, the regeneration kernel;
+    ``"xla"``, the portable wavefront (``use_matmul`` picks its sphere
+    products' form). ``gather`` picks the kernel's winner fetch route
     ("index", "radix" or "windows"; None: the environment's ``RT_GATHER``
     and ``RT_TWO_LEVEL_MXU``, read here once); every route gives the same
-    image.
+    image. ``device`` defaults to "cuda", or to the mesh's first device
+    (another ``device`` with a mesh raises).
 
     ``camera`` may be reassigned (the interactive session moves it every
     pose): the kernel's host camera vector follows it. The packed tables
@@ -171,12 +213,30 @@ class Renderer:
         camera_params: rcamera.CameraParameters,
         *,
         seed: int = 0,
-        device="cuda",
+        device=None,
         max_rays_per_batch: int = 1 << 20,
         gather: str | None = None,
+        use_matmul: bool = True,
+        mesh=None,
+        backend: str = "auto",
     ) -> None:
-        self.device = resolve_device(device)
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = "pallas" if backend == "auto" else backend
+        self.mesh = mesh
+        if mesh is not None:
+            for row in mesh.devices:
+                for d in row:
+                    resolve_device(d)
+            if device is not None and resolve_device(device) != mesh.first:
+                raise ValueError(
+                    f"device {device} is not the mesh's first device "
+                    f"{mesh.first}"
+                )
+            device = mesh.first
+        self.device = resolve_device("cuda" if device is None else device)
         self.gather = rtrace.gather_route(gather)
+        self.use_matmul = bool(use_matmul)
         self.scene = scene.to(self.device)
         self.params = camera_params
         # The kernel takes the camera by value: keep the host copy, so a
@@ -184,11 +244,15 @@ class Renderer:
         self._camera = rcamera.derive(camera_params, self.device)
         self._cam_host = rcamera.derive(camera_params).as_vector()
         self.seed = int(seed)
+        self.base_key = rrng.key(self.seed, self.device)
         self.max_rays_per_batch = int(max_rays_per_batch)
-        # Cull blocks are visited front to back from the camera center.
-        self._tables = rtrace.pack_scene(
-            self.scene, origin=self._cam_host[9:12]
-        )
+        # Cull blocks are visited front to back from the camera center
+        # (the regeneration kernel's tables; the wavefront needs none).
+        self._tables = None
+        if self.backend == "pallas":
+            self._tables = rtrace.pack_scene(
+                self.scene, origin=self._cam_host[9:12]
+            )
         self._scene_hash: bytes | None = None
         self._samples_done = 0
         self._segments = 0
@@ -203,9 +267,13 @@ class Renderer:
         self._elapsed_base = 0.0
         self._spp_target = 0
         self._tiles_counter = 0
-        # Render state: per-slot running sums and completed samples.
+        # Render state: running sums (slot order, or pixel order + spill
+        # row for xla) and, for the kernel, the per-slot completed samples
+        # (one block per spp shard, flat) with the budget whose split laid
+        # them out.
         self._image_sum: torch.Tensor | None = None
         self._done: torch.Tensor | None = None
+        self._done_budget: int | None = None
         # Frame API state: the absolute sample base of render_frame*, the
         # per-pose sums and count of render_frame_accum*, and the
         # per-resolution slot ids and zero done counts.
@@ -300,6 +368,7 @@ class Renderer:
         the accumulated sums (a render under one seed cannot resume another
         seed's samples) and the frame accumulation."""
         self.seed = int(seed)
+        self.base_key = rrng.key(self.seed, self.device)
         self._samples_done = 0
         with self._seg_lock:
             self._segments = 0
@@ -308,33 +377,78 @@ class Renderer:
         self._tiles_counter = 0
         self._image_sum = None
         self._done = None
+        self._done_budget = None
         self._frame_sample_base = 0
         self._frame_accum_sum = None
         self._frame_accum_count = 0
+
+    # -- mesh bookkeeping --------------------------------------------------
+    def _mesh_axis(self, axis: str) -> int:
+        return self.mesh.shape[axis] if self.mesh is not None else 1
+
+    def _work_ahead_shards(self) -> int:
+        """Stacked done blocks: one per spp mesh shard (1 unsharded)."""
+        return self._mesh_axis("spp")
+
+    def _prefix_done(self, slots: int, k: int, budget: int) -> torch.Tensor:
+        """Flat done counts of a state whose completed set is the sample
+        prefix ``[0, k)``, laid out under a ``budget``-sample split: shard
+        ``s`` owns ``[s * budget // n, (s + 1) * budget // n)``, so a prefix
+        fills each shard's own local prefix."""
+        n_sp = self._work_ahead_shards()
+        counts = []
+        for s in range(n_sp):
+            lo = (budget * s) // n_sp
+            hi = (budget * (s + 1)) // n_sp
+            counts.append(min(max(k - lo, 0), hi - lo))
+        return torch.tensor(counts, dtype=torch.int32,
+                            device=self.device).repeat_interleave(slots)
+
+    def _per_slot_done(self, done: torch.Tensor) -> torch.Tensor:
+        """Per-slot completed samples: the sum of the spp shards' local
+        counts (independent of the split, so valid whatever budget laid
+        the blocks out)."""
+        n_sp = self._work_ahead_shards()
+        if n_sp == 1:
+            return done
+        return done.view(n_sp, -1).sum(dim=0, dtype=torch.int32)
+
+    def _tables_by_device(self) -> dict:
+        return {self.device: self._tables}
 
     # -- work decomposition ------------------------------------------------
     def _plan(
         self, spp: int, total_slots: int, has_observer: bool = False
     ) -> tuple[int, int]:
-        """(slot_block, chunk_spp): every wave covers all slots, padded to
-        whole 1024-slot tiles; the sample budget is split into bounded
-        waves, and without an observer into at most ~4."""
-        quantum = rtrace.TILE_SLOTS
-        block = -(-total_slots // quantum) * quantum
-        chunk_spp = max(
-            1, min(spp, (self.max_rays_per_batch * 64) // max(block, 1))
-        )
-        if not has_observer:
-            chunk_spp = max(chunk_spp, -(-spp // 4))
-        return block, chunk_spp
+        """(block, chunk_spp). Kernel: every wave covers all slots, padded
+        to whole 1024-slot tiles on every px shard; the sample budget is
+        split into bounded waves, and without an observer into at most
+        ~4. Wavefront: whole-image blocks of ``chunk_spp`` samples under
+        ``max_rays_per_batch`` rays, else blocks of that many pixels at one
+        sample; blocks divide over the px shards."""
+        n_px = self._mesh_axis("px")
+        if self.backend == "pallas":
+            quantum = rtrace.TILE_SLOTS * n_px
+            block = -(-total_slots // quantum) * quantum
+            chunk_spp = max(
+                1, min(spp, (self.max_rays_per_batch * 64) // max(block, 1))
+            )
+            if not has_observer:
+                chunk_spp = max(chunk_spp, -(-spp // 4))
+            return block, chunk_spp
+        if total_slots <= self.max_rays_per_batch:
+            chunk_spp = max(1, min(spp, self.max_rays_per_batch // total_slots))
+            return -(-total_slots // n_px) * n_px, chunk_spp
+        block = (self.max_rays_per_batch // n_px) * n_px
+        return max(block, n_px), 1
 
     def _waves(
         self, spp: int, max_depth: int, has_observer: bool = False,
         start: int = 0,
     ) -> tuple[list[int], dict]:
-        """The waves of a render from ``start`` completed samples: their
-        cumulative targets ``t_end`` and the other ``render_pixels_fused``
-        arguments, which every wave shares."""
+        """The kernel waves of a render from ``start`` completed samples:
+        their cumulative targets ``t_end`` and the other
+        ``render_pixels_fused`` arguments, which every wave shares."""
         cam = self.camera
         block, chunk_spp = self._plan(
             spp, rtiling.num_slots(cam.image_width, cam.image_height),
@@ -354,6 +468,24 @@ class Renderer:
         )
         return t_ends, meta
 
+    def _wave(self, image_sum, done, t_end, meta):
+        """One kernel wave over every slot (sharded under a mesh); returns
+        ``(image_sum, segments, done)``, the sums continued in place."""
+        if self.mesh is None:
+            return rtrace.render_pixels_fused(
+                self._tables, self._cam_host, t_end=t_end, done=done,
+                radiance_sum=image_sum, **meta,
+            )
+        rad, segments, done2 = rshard.render_pixels_fused_sharded(
+            self._tables_by_device(), self._cam_host, meta["slot_base"],
+            meta["seed"], meta["sample_start"], meta["spp"],
+            meta["max_depth"], meta["num_slots"], self.mesh,
+            meta["pixel_order"], done.view(-1, 128), t_end,
+            map_param=meta["map_param"], radiance_sum=image_sum,
+            gather=meta["gather"],
+        )
+        return rad, segments, done2.reshape(-1)
+
     def render(
         self,
         spp: int | None = None,
@@ -367,17 +499,20 @@ class Renderer:
         """Render the full image; returns ``uint8[H, W, 3]``.
 
         With ``resume=True`` (after a render or ``load_checkpoint``) the
-        accumulated sums and per-slot counts are kept and only what is left
-        up to ``spp`` is traced. Every wave continues each slot's running
-        sum in sample order, so a resumed render is byte-equal to an
-        uninterrupted one whatever wave it was stopped after (stronger than
-        the JAX package's equality when the chunking matches). A state that
-        already holds ``spp`` or more samples is returned as it is,
-        normalised per slot.
+        accumulated sums (and per-slot counts) are kept and only what is
+        left up to ``spp`` is traced. Every wave continues each slot's or
+        pixel's running sum in sample order, so a resumed render is
+        byte-equal to an uninterrupted one whatever wave it was stopped
+        after (stronger than the JAX package's equality when the chunking
+        matches; under an spp split of the mesh, equal for the same split).
+        A state that already holds ``spp`` or more samples is returned as
+        it is, normalised per slot. A sharded kernel state in the middle
+        of its work-ahead (not at a sample prefix) resumes only toward the
+        budget that split it.
 
-        With ``as_device_array=True`` the uint8 image stays on the device in
-        slot order, with no host synchronisation; ``fetch_image`` brings it
-        to the host.
+        With ``as_device_array=True`` the uint8 image stays on the device
+        (slot order for the kernel, ``[H, W, 3]`` for xla), with no host
+        synchronisation; ``fetch_image`` brings it to the host.
         """
         spp = int(spp if spp is not None else self.params.samples_per_pixel)
         max_depth = int(
@@ -390,64 +525,29 @@ class Renderer:
             self._end_time = self._start_time
             self._samples_done = 0
             return np.zeros((cam.image_height, cam.image_width, 3), np.uint8)
-
-        num_pixels = self.pixels_count
         resuming = (
             resume and self._image_sum is not None and self._samples_done > 0
         )
-        start = self._samples_done if resuming else 0
-        t_ends, meta = self._waves(
-            spp, max_depth, has_observer=on_progress is not None, start=start
-        )
-        block = meta["num_slots"]
-        dev = self.device
-        if resuming:
-            image_sum, done = self._image_sum, self._done
-            if start >= spp:
-                u8 = _slots_to_u8(image_sum, done)
-                return u8 if as_device_array else self.fetch_image(u8)
-        else:
-            image_sum = torch.zeros((block, 3), dtype=torch.float32, device=dev)
-            done = torch.zeros((block,), dtype=torch.int32, device=dev)
+        if self.backend == "xla":
+            return self._render_xla(spp, max_depth, on_progress,
+                                    progress_every_chunks, resuming,
+                                    as_device_array)
+        return self._render_kernel(spp, max_depth, on_progress,
+                                   progress_every_chunks, resuming,
+                                   as_device_array)
+
+    def _start(self, resuming: bool, start: int) -> None:
+        if not resuming:
             with self._seg_lock:
                 self._segments = 0
                 self._pending_segments = []
             self._elapsed_base = 0.0
             self._tiles_counter = 0
-
         self._samples_done = start
         self._start_time = time.perf_counter()
         self._end_time = None
-        for chunk_index, t_end in enumerate(t_ends, start=1):
-            image_sum, segments, done = rtrace.render_pixels_fused(
-                self._tables,
-                self._cam_host,
-                t_end=t_end,
-                done=done,
-                radiance_sum=image_sum,
-                **meta,
-            )
-            self._track(segments)
-            # The state a checkpoint saves, current before the callback.
-            self._image_sum, self._done = image_sum, done
-            self._samples_done = t_end
-            self._tiles_counter += block // rtrace.TILE_SLOTS
-            if on_progress is not None and (
-                chunk_index % progress_every_chunks == 0 or t_end >= spp
-            ):
-                snap = _slots_to_u8(image_sum, done)
-                on_progress(
-                    RenderProgress(
-                        samples_done=t_end,
-                        samples_total=spp,
-                        pixels_count=num_pixels,
-                        segments_traced=self.segments_traced,
-                        elapsed_s=self.render_time(),
-                        _preview=lambda s=snap: self.fetch_image(s),
-                    )
-                )
 
-        u8 = _slots_to_u8(image_sum, done)
+    def _finish(self, u8: torch.Tensor, as_device_array: bool):
         image = None if as_device_array else self.fetch_image(u8)
         if not as_device_array:
             self.segments_traced  # waits for the last launch's count
@@ -456,6 +556,124 @@ class Renderer:
         self._start_time = None
         self._end_time = None
         return u8 if as_device_array else image
+
+    def _progress(self, on_progress, done: int, spp: int, snap) -> None:
+        on_progress(
+            RenderProgress(
+                samples_done=done,
+                samples_total=spp,
+                pixels_count=self.pixels_count,
+                segments_traced=self.segments_traced,
+                elapsed_s=self.render_time(),
+                _preview=lambda s=snap: self.fetch_image(s),
+            )
+        )
+
+    def _render_kernel(self, spp, max_depth, on_progress,
+                       progress_every_chunks, resuming, as_device_array):
+        start = self._samples_done if resuming else 0
+        t_ends, meta = self._waves(
+            spp, max_depth, has_observer=on_progress is not None, start=start
+        )
+        block = meta["num_slots"]
+        n_sp = self._work_ahead_shards()
+        if resuming:
+            image_sum, done = self._image_sum, self._done
+            if start >= spp:
+                u8 = _slots_to_u8(image_sum, self._per_slot_done(done))
+                return u8 if as_device_array else self.fetch_image(u8)
+            if n_sp > 1 and self._done_budget != spp:
+                # The sharded layout depends on the budget's split: a state
+                # at a sample prefix (e.g. a completed render) is that
+                # prefix in any split; a ragged one cannot be re-split.
+                old = (None if self._done_budget is None else
+                       self._prefix_done(block, start, self._done_budget))
+                if old is None or not torch.equal(done, old):
+                    raise ValueError(
+                        "cannot resume a mid-render sharded work-ahead "
+                        f"state toward a different spp (state split at "
+                        f"{self._done_budget}, target {spp}); finish the "
+                        "render at the original spp first"
+                    )
+                done = self._prefix_done(block, start, spp)
+        else:
+            image_sum = torch.zeros((block, 3), dtype=torch.float32,
+                                    device=self.device)
+            done = torch.zeros((n_sp * block,), dtype=torch.int32,
+                               device=self.device)
+        self._done_budget = spp
+        self._start(resuming, start)
+        for chunk_index, t_end in enumerate(t_ends, start=1):
+            image_sum, segments, done = self._wave(image_sum, done, t_end,
+                                                   meta)
+            self._track(segments)
+            # The state a checkpoint saves, current before the callback.
+            self._image_sum, self._done = image_sum, done
+            self._samples_done = t_end
+            self._tiles_counter += (block // rtrace.TILE_SLOTS) * n_sp
+            if on_progress is not None and (
+                chunk_index % progress_every_chunks == 0 or t_end >= spp
+            ):
+                snap = _slots_to_u8(image_sum, self._per_slot_done(done))
+                self._progress(on_progress, t_end, spp, snap)
+        u8 = _slots_to_u8(image_sum, self._per_slot_done(done))
+        return self._finish(u8, as_device_array)
+
+    def _render_xla(self, spp, max_depth, on_progress,
+                    progress_every_chunks, resuming, as_device_array):
+        cam = self.camera
+        h, w = cam.image_height, cam.image_width
+        num_pixels = self.pixels_count
+        block, chunk_spp = self._plan(spp, num_pixels)
+        dev = self.device
+        ids = torch.arange(num_pixels, dtype=torch.int64, device=dev)
+        pad = (-num_pixels) % block
+        if pad:
+            ids = torch.cat([ids, torch.full((pad,), num_pixels,
+                                             dtype=torch.int64, device=dev)])
+        blocks = list(torch.split(ids, block))
+        if resuming:
+            image_sum = self._image_sum
+            start = self._samples_done
+            if start >= spp:
+                u8 = _to_u8(image_sum, start, h, w)
+                return u8 if as_device_array else self.fetch_image(u8)
+        else:
+            image_sum = torch.zeros((num_pixels + 1, 3), dtype=torch.float32,
+                                    device=dev)
+            start = 0
+        self._start(resuming, start)
+        chunk_index = 0
+        while start < spp:
+            this_chunk = min(chunk_spp, spp - start)
+            for pix in blocks:
+                rows = image_sum[pix]
+                if self.mesh is None:
+                    rad, segments = integrator.render_pixels(
+                        self.scene, cam, self.base_key, pix, start,
+                        this_chunk, spp, max_depth,
+                        use_matmul=self.use_matmul, radiance_init=rows,
+                    )
+                else:
+                    rad, segments = rshard.render_pixels_sharded(
+                        self.scene, cam, self.base_key, pix, start,
+                        this_chunk, spp, max_depth, self.mesh,
+                        self.use_matmul, radiance_init=rows,
+                    )
+                image_sum.index_copy_(0, pix, rad)
+                self._track(segments)
+                self._tiles_counter += (pix.shape[0] * this_chunk
+                                        ) // rtrace.DEFAULT_TILE_RAYS
+            start += this_chunk
+            chunk_index += 1
+            self._samples_done = start
+            self._image_sum = image_sum
+            if on_progress is not None and (
+                chunk_index % progress_every_chunks == 0 or start >= spp
+            ):
+                self._progress(on_progress, start, spp,
+                               _to_u8(image_sum, start, h, w))
+        return self._finish(_to_u8(image_sum, spp, h, w), as_device_array)
 
     def fetch_image(self, u8: torch.Tensor) -> np.ndarray:
         """A device u8 image in slot order (``render(as_device_array=True)``,
@@ -469,10 +687,18 @@ class Renderer:
         return arr
 
     # -- interactive frames ------------------------------------------------
-    def _frame_setup(self, spp, max_depth):
+    def _frame_setup(self, spp, max_depth, what: str):
         """The frame API's prologue: (spp, max_depth, slots), and the
         per-resolution slot ids (for the device preview) and zero done
-        counts, made once per (W, H) and kept on the device."""
+        counts, made once per (W, H) and kept on the device. The frame API
+        is the kernel's and single-device."""
+        if self.backend != "pallas":
+            raise ValueError(f"{what} requires the pallas backend")
+        if self.mesh is not None:
+            raise ValueError(
+                f"{what} is single-chip (it bypasses the mesh); use "
+                "render() for sharded rendering"
+            )
         spp = int(spp if spp is not None else self.params.samples_per_pixel)
         max_depth = int(
             max_depth if max_depth is not None else self.params.max_depth
@@ -523,12 +749,13 @@ class Renderer:
         return _device_preview(u8, self._frame_ids, h, w, ph, pw)
 
     def render_frame(self, spp: int | None = None,
-                     max_depth: int | None = None) -> torch.Tensor:
+                     max_depth: int | None = None, *,
+                     _what: str = "render_frame") -> torch.Tensor:
         """One interactive frame: one launch plus the tonemap, returning
         the device u8 image in slot order without synchronising (pair with
         ``fetch_image``). Consecutive frames draw fresh samples (the
         absolute sample base advances by ``spp``)."""
-        spp, max_depth, slots = self._frame_setup(spp, max_depth)
+        spp, max_depth, slots = self._frame_setup(spp, max_depth, _what)
         rad = self._frame_launch(spp, max_depth, slots,
                                  self._frame_sample_base)
         self._frame_sample_base += spp
@@ -545,7 +772,7 @@ class Renderer:
         ``(dev_slots, dev_preview)``. The preview covers the whole frame;
         its shape is ceil(H/fy) x ceil(W/fx) <= (preview_rows,
         preview_cols), fy and fx the ceil box factors."""
-        u8 = self.render_frame(spp, max_depth)
+        u8 = self.render_frame(spp, max_depth, _what="render_frame_preview")
         return u8, self._preview(u8, preview_rows, preview_cols)
 
     @property
@@ -559,7 +786,8 @@ class Renderer:
         self._frame_accum_count = 0
 
     def render_frame_accum(self, spp: int | None = None,
-                           max_depth: int | None = None):
+                           max_depth: int | None = None, *,
+                           _what: str = "render_frame_accum"):
         """Accumulating frame: trace ``spp`` fresh samples (absolute ids
         ``[count, count + spp)``, the samples a one-shot ``render(spp=count
         + spp)`` with this seed draws) in one launch that continues the
@@ -567,7 +795,7 @@ class Renderer:
         accumulated mean in slot order (no synchronisation) and the pose's
         sample count after this frame. k frames give the bits of one
         ``render(spp=total)``. Call ``frame_accum_reset()`` on motion."""
-        spp, max_depth, slots = self._frame_setup(spp, max_depth)
+        spp, max_depth, slots = self._frame_setup(spp, max_depth, _what)
         count = self._frame_accum_count
         self._frame_accum_sum = self._frame_launch(
             spp, max_depth, slots, count, self._accum_buffer(slots)
@@ -585,7 +813,8 @@ class Renderer:
     ):
         """``render_frame_accum`` plus the device-side preview: ``(dev_u8,
         dev_preview, total)``."""
-        u8, total = self.render_frame_accum(spp, max_depth)
+        u8, total = self.render_frame_accum(
+            spp, max_depth, _what="render_frame_accum_preview")
         return u8, self._preview(u8, preview_rows, preview_cols), total
 
     def _accum_buffer(self, slots: int) -> torch.Tensor | None:
@@ -623,24 +852,40 @@ class Renderer:
         h.update(str(self.seed).encode())
         return h.hexdigest()
 
+    def _framebuffer_rows(self) -> int:
+        """Rows of this backend's and mesh's accumulation buffer: slots
+        padded to the px shards' tiles (kernel), or pixels + the spill row
+        (xla)."""
+        if self.backend == "pallas":
+            cam = self.camera
+            slots = rtiling.num_slots(cam.image_width, cam.image_height)
+            return self._plan(1, slots)[0]
+        return self.pixels_count + 1
+
     def save_checkpoint(self, path: str) -> None:
-        """Write the accumulated sums, per-slot counts and counters to
-        ``path`` (``.npz`` appended if missing), the JAX package's keys;
-        also mid-render, from an ``on_progress`` callback."""
+        """Write the accumulated sums (with the kernel's per-slot counts and
+        the budget that split them) and the counters to ``path`` (``.npz``
+        appended if missing), the JAX package's keys; also mid-render, from
+        an ``on_progress`` callback."""
         if self._image_sum is None:
             raise ValueError("nothing rendered yet; no state to checkpoint")
         if not str(path).endswith(".npz"):
             path = f"{path}.npz"
+        extra = {}
+        if self._done is not None:
+            extra["done"] = self._done.cpu().numpy().reshape(-1, 128)
+            if self._done_budget is not None:
+                extra["done_budget"] = self._done_budget
         np.savez_compressed(
             path,
             image_sum=self._image_sum.cpu().numpy(),
-            done=self._done.cpu().numpy().reshape(-1, 128),
             samples_done=self._samples_done,
             segments=self.segments_traced,
             tiles_counter=self._tiles_counter,
             elapsed=self.render_time(),
             fingerprint=self._fingerprint(),
-            layout=_CHECKPOINT_LAYOUT,
+            layout=_LAYOUT[self.backend],
+            **extra,
         )
 
     def load_checkpoint(self, path: str) -> int:
@@ -648,9 +893,11 @@ class Renderer:
 
         The checkpoint must come from a renderer with the same scene (every
         field), camera and seed: the fingerprint is checked, so one written
-        by the JAX package is refused. Resume with ``render(resume=True)``:
-        the kernel's RNG is keyed by (slot, absolute sample), so the resumed
-        render is byte-equal to an uninterrupted one."""
+        by the JAX package is refused. Its layout must be this backend's
+        ("slot" for the kernel, "pixel" for xla) and its rows this mesh's.
+        Resume with ``render(resume=True)``: both backends key their RNG by
+        (pixel or slot, absolute sample), so the resumed render is
+        byte-equal to an uninterrupted one."""
         if not str(path).endswith(".npz"):
             path = f"{path}.npz"
         with np.load(path, allow_pickle=False) as data:
@@ -660,27 +907,41 @@ class Renderer:
                     "camera, or seed)"
                 )
             layout = str(data["layout"]) if "layout" in data else "pixel"
-            if layout != _CHECKPOINT_LAYOUT:
+            expected = _LAYOUT[self.backend]
+            if layout != expected:
                 raise ValueError(
-                    f"checkpoint framebuffer layout {layout!r} is not the "
-                    f"regeneration kernel's {_CHECKPOINT_LAYOUT!r} layout"
+                    f"checkpoint framebuffer layout {layout!r} does not "
+                    f"match the {self.backend!r} backend's {expected!r} "
+                    "layout; resume with the backend that produced the "
+                    "checkpoint"
                 )
             rows = int(data["image_sum"].shape[0])
-            cam = self.camera
-            want = rtiling.num_slots(cam.image_width, cam.image_height)
+            want = self._framebuffer_rows()
             if rows != want:
                 raise ValueError(
                     f"checkpoint framebuffer has {rows} rows but this "
-                    f"renderer expects {want}"
+                    f"renderer expects {want} (different mesh px-axis or "
+                    "image padding); resume with the mesh that produced "
+                    "the checkpoint"
                 )
-            if "done" not in data or data["done"].shape != (want // 128, 128):
-                raise ValueError(
-                    f"checkpoint done array must be [{want // 128}, 128]"
-                )
+            done = None
+            if self.backend == "pallas":
+                want_done = self._work_ahead_shards() * (want // 128)
+                if "done" not in data or data["done"].shape != (want_done,
+                                                                128):
+                    got = data["done"].shape if "done" in data else None
+                    raise ValueError(
+                        f"checkpoint done array is {got} but this "
+                        f"renderer's mesh expects [{want_done}, 128]; "
+                        "resume with the mesh that produced the checkpoint"
+                    )
+                done = data["done"].astype(np.int32).reshape(-1)
             image_sum = data["image_sum"].astype(np.float32)
-            done = data["done"].astype(np.int32).reshape(-1)
             self._image_sum = torch.from_numpy(image_sum).to(self.device)
-            self._done = torch.from_numpy(done).to(self.device)
+            self._done = (None if done is None
+                          else torch.from_numpy(done).to(self.device))
+            self._done_budget = (int(data["done_budget"])
+                                 if "done_budget" in data else None)
             self._samples_done = int(data["samples_done"])
             with self._seg_lock:
                 self._segments = int(data["segments"])

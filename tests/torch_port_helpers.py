@@ -324,6 +324,14 @@ def trace_jax_without_fma(tmp_path, scene_expr: str, o, d, *, depth, seed,
     return data["rad"], int(data["seg"])
 
 
+def port_key(jax_keys) -> torch.Tensor:
+    """A JAX threefry key (or batch of keys) as the port's key pair: its
+    ``jax.random.key_data`` words in an int64 ``(..., 2)`` tensor."""
+    import jax.random as jr
+
+    return torch.from_numpy(np.asarray(jr.key_data(jax_keys)).astype(np.int64))
+
+
 def close_share(a, b) -> float:
     """Share of slots whose radiance agrees within ATOL/RTOL."""
     return float(np.isclose(a, b, atol=ATOL, rtol=RTOL).all(axis=1).mean())
