@@ -43,7 +43,7 @@ _c_int = ctypes.c_int
 # The scene arguments both entries of regen.cu take first.
 _SCENE_ARGS = [
     _c_ptr, _c_ptr, _c_ptr, _c_int,            # geom_h, geom_c, shade, n_pad
-    _c_int, _c_ptr, _c_ptr,                    # sph_two_level, sph_ord, sph_bnd
+    _c_int, _c_int, _c_ptr, _c_ptr,            # n_actual, sph_two_level, sph_ord, sph_bnd
     _c_ptr, _c_int, _c_int, _c_int,            # tex, tex_rows, kh, kw
     _c_ptr, _c_int, _c_int, _c_int,            # tri, m_pad, m_actual, tri_mode
     _c_ptr, _c_ptr,                            # tri_ord, tri_bnd
@@ -61,6 +61,7 @@ _ARGTYPES = {
         ],
         "rt_trace_launch": _SCENE_ARGS + [
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,            # ray_o, ray_d, rad, segments
+            _c_ptr,                                    # queue
             _c_int, ctypes.c_uint, _c_int, _c_int,     # count, seed, tile_offset, tile_rays
             _c_int, _c_ptr,                            # max_depth, stream
         ],

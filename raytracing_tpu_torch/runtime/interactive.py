@@ -287,9 +287,12 @@ class InteractiveSession:
         self.last_frame = dev
         if self._pool is None:
             return self._emit((prev.cpu(), None), total)
+        # Read before the submit: the worker may present this frame before
+        # the main thread reads on, and the frame returned must not depend
+        # on that race.
+        img = self._last_img
         staged = self._copies.stage(prev)
         self._pending.append(self._pool.submit(self._emit, staged, total))
-        img = self._last_img
         while len(self._pending) > self.pipeline:
             img = self._pending.pop(0).result()
         return img

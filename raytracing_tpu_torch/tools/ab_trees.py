@@ -20,7 +20,9 @@ scene in that tree: ``trace_rays_fused`` on every pixel-centre ray of a
 1920-wide frame (as chip_smoke.py's trace phase builds them), depth 8,
 seed 7, CUDA events around each of ``--ray-reps`` calls after a warm-up
 call, with the SHA-256 of the radiance so that the trees' bits can be
-compared.
+compared; and the host microseconds a launch of each entry's wrapper
+(``host_us``: 200 calls back to back on small batches, the host's clock
+around the calls).
 
 Usage (on the card, from the repository root)::
 
@@ -57,7 +59,7 @@ ROUTES = {"index": {"RT_GATHER": "mxu", "RT_TWO_LEVEL_MXU": "1"},
 
 # Run inside a tree (its own package on sys.path): argv = reps, scenes.
 _RAYS_CHILD = """
-import hashlib, json, sys
+import hashlib, json, sys, time
 import torch
 import raytracing_tpu_torch as rtt
 from raytracing_tpu_torch.ops import trace as rtrace
@@ -86,8 +88,31 @@ for name in sys.argv[2:]:
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
+    # Host microseconds a launch: 200 calls back to back on 8 tiles at
+    # depth 1 (trace) and on 1,024 slots at 1 spp, depth 1 (regen), the
+    # host's clock around the calls alone.
+    ow, dw = o[:8192].contiguous(), d[:8192].contiguous()
+    cam_host = cam.as_vector().cpu()
+    done = torch.zeros(1024, dtype=torch.int32, device=dev)
+    calls = {
+        "trace": lambda: rtrace.trace_rays_fused(tables, ow, dw, 7, 0, 1),
+        "regen": lambda: rtrace.render_pixels_fused(
+            tables, cam_host, slot_base=0, map_param=-(-w // 32), seed=0,
+            sample_start=0, spp=1, max_depth=1, t_end=1, done=done,
+            num_slots=1024),
+    }
+    host_us = {}
+    for what, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[what] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
     print(json.dumps({
         "rays_scene": name, "rays": n, "ms": ms, "segments": int(seg),
+        "host_us": host_us,
         "radiance_sha256": hashlib.sha256(rad.cpu().numpy().tobytes())
         .hexdigest(), "card": profile_render.card_line()}))
 """
@@ -166,6 +191,7 @@ def main(argv: list[str] | None = None) -> int:
     trees = [t.split("=", 1) for t in args.tree]
     summary: dict = {}
     ray_ms: dict = {}
+    host_us: dict = {}
     shas: dict = {}
     images: dict = {}
     imaged: set = set()
@@ -198,10 +224,14 @@ def main(argv: list[str] | None = None) -> int:
                       **obj})
                 (ray_ms.setdefault(name, {})
                  .setdefault(obj["rays_scene"], []).extend(obj["ms"]))
+                for what, us in obj["host_us"].items():
+                    host_us.setdefault(name, {}).setdefault(what,
+                                                            []).append(us)
                 shas.setdefault(obj["rays_scene"], set()).add(
                     obj["radiance_sha256"])
     print(json.dumps({
         "render_seconds": summary, "ray_batch_ms": ray_ms,
+        "host_us_a_launch": host_us,
         "ray_bits_equal": {k: len(v) == 1 for k, v in shas.items()},
         "image_bits_equal": {k: len(v) == 1 for k, v in images.items()},
     }), flush=True)

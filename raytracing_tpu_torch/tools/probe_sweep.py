@@ -147,13 +147,17 @@ def _loop_row(ops: list[str], rows: int) -> dict:
 
 def coop_loops(insns: list[tuple[int, str]], root: str) -> list[dict]:
     """The innermost loops of one function that sweep rows cooperatively
-    (they hold a ``REDUX``), in address order: rows per trip (their count of
-    ``root``: ``MUFU.RSQ`` for sphere rows, ``MUFU.RCP`` for triangle rows),
-    ``REDUX`` per trip, and ``_loop_row``'s counts."""
+    (they hold a ``REDUX`` and no atomic: the trace entry's refill, which
+    takes rays from its queue by an aggregated ``ATOMG``, is no sweep), in
+    address order: rows per trip (their count of ``root``: ``MUFU.RSQ``
+    for sphere rows, ``MUFU.RCP`` for triangle rows), ``REDUX`` per trip,
+    and ``_loop_row``'s counts."""
     loops = []
     for lo, ops in _innermost_loops(insns):
         rows = ops.count(root)
-        if rows == 0 or "REDUX" not in ops:
+        if (rows == 0 or "REDUX" not in ops
+                or any(o.startswith(("ATOM", "RED")) and o != "REDUX"
+                       for o in ops)):
             continue
         loops.append({"address": lo, "redux_per_trip": ops.count("REDUX"),
                       **_loop_row(ops, rows)})

@@ -42,6 +42,16 @@ length about 2^-60 (``TINY_FOCUS``), so ``a`` = |d|^2 is about 2^-120 and a
 hit's ``delta`` (at most ``a * r^2``, r <= 2) lies below 2^-101. The
 camera sits at the origin so that the tiny pixel offsets stay exact.
 
+The staged sweep stops at the real rows for rays inside its bound
+(``csrc/regen.cu``, ``cut_ok``; ``ops/trace.py::staged_sweep_rows``).
+``counted_spheres(builder, n)`` puts ``n`` seeded spheres in a table of 128
+rows (1, 3, 5, 127: real rows that end inside a trip of four or at one);
+``phantom_spheres(builder)`` puts a sphere past 1e15 at the Morton-last
+row, so that the pad rows repeating its centre win the rays aimed at it
+(``phantom_camera()`` looks at it); ``past_the_bound_rays()`` holds rays
+past the bound: aimed at the phantom, from origins at 4e18, of ``a`` = 0,
+and seeded.
+
 The triangle key's reciprocal (``key_rcp``) has its own range: where
 b = bf16(|det|) reaches 2^126 it is not the IEEE reciprocal, and the
 triangle sweeps sweep that window again with the IEEE divide.
@@ -65,6 +75,7 @@ RAYS = 1024
 PADDED_ROWS = 2048
 TINY_FOCUS = 2.0 ** -60
 SCALED = 2.0 ** 66
+PHANTOM_CENTER = (2.0e15, 2.0e15, 2.0e15)
 
 
 def add_spheres(builder):
@@ -123,6 +134,82 @@ def padded_spheres(builder, spheres: int = 1200, seed: int = 0):
         else:
             builder.add_dielectric_sphere(center, 0.3, 1.5)
     return builder
+
+
+def counted_spheres(builder, n: int):
+    """A ground sphere and ``n`` - 1 small seeded spheres of every material
+    in front of the golden camera (lookfrom (0, 0.3, 1.2)); returns
+    ``builder``."""
+    rng = np.random.default_rng(n)
+    builder.add_lambertian_sphere((0.0, -100.5, -1.0), 100.0,
+                                  (0.5, 0.5, 0.5))
+    for _ in range(n - 1):
+        c = (rng.uniform(-2.0, 2.0), rng.uniform(-0.4, 0.8),
+             rng.uniform(-4.0, -0.5))
+        u = rng.uniform()
+        if u < 0.5:
+            builder.add_lambertian_sphere(c, 0.15,
+                                          tuple(rng.uniform(0, 1, 3)))
+        elif u < 0.8:
+            builder.add_metallic_sphere(c, 0.15,
+                                        tuple(rng.uniform(0.5, 1, 3)), 0.1)
+        else:
+            builder.add_dielectric_sphere(c, 0.15, 1.5)
+    return builder
+
+
+def phantom_spheres(builder):
+    """Three small spheres before the world origin and one of radius 1e14
+    at ``PHANTOM_CENTER``, the Morton-last of four rows (a whole trip), so
+    that the pad rows after it (cm2 = 1e30) meet rays as a sphere of radius
+    sqrt(|c|^2 - 1e30) and win most of those aimed at it; returns
+    ``builder``."""
+    builder.add_lambertian_sphere((0.0, 0.0, -3.0), 1.0, (0.5, 0.5, 0.5))
+    builder.add_metallic_sphere((2.0, 0.0, -4.0), 1.0, (0.8, 0.8, 0.8), 0.1)
+    builder.add_dielectric_sphere((-2.0, 0.5, -4.0), 0.8, 1.5)
+    builder.add_lambertian_sphere(PHANTOM_CENTER, 1.0e14, (0.2, 0.7, 0.2))
+    return builder
+
+
+def phantom_camera(width: int = 64, spp: int = 2, depth: int = 4):
+    """The port's ``CameraParameters`` at the world origin looking at
+    ``PHANTOM_CENTER``, without defocus."""
+    from ..core.camera import CameraParameters
+
+    return CameraParameters(
+        aspect_ratio=16.0 / 9.0, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, vertical_fov=70.0, defocus_angle=0.0,
+        focus_distance=1.0, lookfrom=(0.0, 0.0, 0.0), lookat=PHANTOM_CENTER)
+
+
+def aimed(center, origins: np.ndarray, rng, jitter: float) -> np.ndarray:
+    """Unit directions from ``origins`` at ``center`` plus normal jitter of
+    ``jitter``, float32."""
+    d = np.asarray(center, np.float64) - origins.astype(np.float64)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d += rng.normal(size=d.shape) * jitter
+    return d.astype(np.float32)
+
+
+def past_the_bound_rays(n: int = RAYS, seed: int = 9):
+    """``n`` rays past the real-row cut's bound, a quarter of each kind:
+    from [-1, 1]^3 aimed at ``PHANTOM_CENTER``; from origins at 4e18 aimed
+    near (0, 0, -3); from the world origin with directions of about 1e-25
+    (``a`` rounds to 0); from the world origin, seeded. Numpy float32
+    (origins, directions) [n, 3]."""
+    rng = np.random.default_rng(seed)
+    q = n // 4
+    o1 = rng.uniform(-1.0, 1.0, (q, 3)).astype(np.float32)
+    u = rng.normal(size=(q, 3))
+    o2 = (u / np.linalg.norm(u, axis=1, keepdims=True) * 4.0e18)
+    o2 = o2.astype(np.float32)
+    o = np.concatenate([o1, o2, np.zeros((n - 2 * q, 3), np.float32)])
+    d = np.concatenate([
+        aimed(PHANTOM_CENTER, o1, rng, 0.3),
+        aimed((0.0, 0.0, -3.0), o2, rng, 1e-7),
+        (rng.normal(size=(q, 3)) * 1.0e-25).astype(np.float32),
+        rng.normal(size=(n - 3 * q, 3)).astype(np.float32)])
+    return o, d
 
 
 def tiny_camera(width: int = 64, spp: int = 2, depth: int = 4):

@@ -78,6 +78,37 @@ def test_sweep_loops_are_innermost_with_a_root_a_row():
         "_Z5otherv"]) == []
 
 
+_COOP_LISTING = """
+\t\tFunction : _Z12trace_stagedILb0ELi2EEvv
+        /*0000*/                   MOV R2, RZ ;
+        /*0010*/                   VOTE.ANY R3, PT, P0 ;
+        /*0020*/                   MATCH.ANY R4, R5 ;
+        /*0030*/                   REDUX.SUM R6, R7 ;
+        /*0040*/                   ATOMG.E.ADD.64 R8, desc[UR4][R2.64], R6 ;
+        /*0050*/                   I2F R9, R8 ;
+        /*0060*/                   MUFU.RCP R9, R9 ;
+        /*0070*/               @P1 BRA 0x10 ;
+        /*0080*/                   LDS.128 R4, [R3] ;
+        /*0090*/                   MUFU.RCP R6, R5 ;
+        /*00a0*/                   MUFU.RCP R6, R5 ;
+        /*00b0*/                   MUFU.RCP R6, R5 ;
+        /*00c0*/                   MUFU.RCP R6, R5 ;
+        /*00d0*/                   REDUX.MIN R6, R7 ;
+        /*00e0*/                   REDUX.MIN R6, R7 ;
+        /*00f0*/               @P2 BRA 0x80 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_coop_loops_skip_the_ray_queue_refill():
+    # The refill loop (an aggregated ATOMG beside a REDUX) is no sweep; the
+    # cooperative triangle loop (four rows a lane, two REDUX) is.
+    insns = sass.functions(_COOP_LISTING)["_Z12trace_stagedILb0ELi2EEvv"]
+    loops = probe_sweep.coop_loops(insns, "MUFU.RCP")
+    assert [(lp["address"], lp["rows_per_trip"], lp["redux_per_trip"])
+            for lp in loops] == [(0x80, 4, 2)]
+
+
 def test_backward_branches_plain_or_uniform():
     # probe_dtype's rate loops count plain BRA back-edges only.
     insns = sass.functions(_LISTING)["_Z12regen_stagedILb0ELi0EEvv"]

@@ -495,3 +495,35 @@ def sweep_edge_scene_jax():
     from raytracing_tpu_torch.tools import sweep_edges
 
     return sweep_edges.add_spheres(SceneBuilder()).build()
+
+
+
+def phantom_scene_jax():
+    """``tools/sweep_edges.py``'s phantom scene in the JAX package: a
+    sphere past 1e15 whose pad rows win the rays aimed at it."""
+    from raytracing_tpu_torch.tools import sweep_edges
+
+    return sweep_edges.phantom_spheres(SceneBuilder()).build()
+
+
+def phantom_params(**kw):
+    """The JAX package's camera at the world origin looking at the
+    phantom (``sweep_edges.phantom_camera``)."""
+    from raytracing_tpu_torch.tools import sweep_edges
+
+    return golden_params(
+        aspect_ratio=16.0 / 9.0, vertical_fov=70.0,
+        lookfrom=(0.0, 0.0, 0.0), lookat=sweep_edges.PHANTOM_CENTER, **kw,
+    )
+
+
+def sphereless_scene_jax():
+    """A 80-triangle icosphere and no sphere: a table of pad rows only, at
+    the centre (1e9, 1e9, 1e9)."""
+    from raytracing_tpu.scene import mesh as jmesh
+
+    verts, faces = jmesh.make_icosphere(1)
+    b = SceneBuilder()
+    b.add_mesh(verts + np.float32([0.0, 0.0, -3.0]), faces,
+               albedo=(0.6, 0.5, 0.4))
+    return b.build()
