@@ -1,0 +1,16 @@
+"""The card's idle share of the traced window: 1 - (the union of its
+kernel and copy intervals) / (the window's length), from the profiler."""
+
+from rtbench.metrics._common import idle_pct
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "trace_p95_ms"
+BETTER = "lower"
+
+
+def read(run):
+    if run.kind != "ray_batches" or run.record is None:
+        return None
+    return idle_pct(run.record)
