@@ -20,6 +20,7 @@ and whose pose changes reseed the renderer with its own seed).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import sys
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import camera as rcamera
+from ..utils import spans
 from . import display as rdisplay
 from .renderer import Renderer, RenderProgress
 
@@ -159,6 +161,11 @@ class InteractiveSession:
 
             self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self.display = rdisplay.TerminalDisplay(stream=stream)
+        # (frame, ms waited for its host copy, ms drawn) of the newest
+        # presented frames, on the host's clock: the presenter may run on
+        # the pipeline's worker, where the profiler records no span.
+        self._presents: collections.deque = collections.deque(maxlen=4096)
+        self._presented = 0
         self.frames_rendered = 0
         self.quit = False
         self._t0 = time.perf_counter()
@@ -217,6 +224,15 @@ class InteractiveSession:
     @property
     def converged(self) -> bool:
         return self.samples_at_pose >= self.converge_spp
+
+    @property
+    def presents(self) -> tuple:
+        """``(frame, wait_ms, draw_ms)`` of each of the newest presented
+        frames (at most 4,096), oldest first: the frame's place among the
+        session's presented frames (0, 1, ...), and the host milliseconds
+        the presenter waited for its copy to land and drew it. Host
+        clock."""
+        return tuple(self._presents)
 
     def step(self, keys: str = "") -> np.ndarray | None:
         """Process pending keystrokes, render + present ONE frame.
@@ -293,8 +309,9 @@ class InteractiveSession:
         img = self._last_img
         staged = self._copies.stage(prev)
         self._pending.append(self._pool.submit(self._emit, staged, total))
-        while len(self._pending) > self.pipeline:
-            img = self._pending.pop(0).result()
+        with spans.span("rt.frame.wait"):
+            while len(self._pending) > self.pipeline:
+                img = self._pending.pop(0).result()
         return img
 
     def flush(self) -> np.ndarray | None:
@@ -308,12 +325,17 @@ class InteractiveSession:
         """Wait for a staged preview and present it labelled with the
         sample count it holds. Runs on the pipeline's single worker, so
         presentation stays ordered."""
+        t0 = time.perf_counter()
         img = HostCopies.wait(staged)
-        self._present(img, total)
+        self._present(img, total, wait_s=time.perf_counter() - t0)
         self._last_img = img
         return img
 
-    def _present(self, img: np.ndarray, samples: int) -> None:
+    def _present(self, img: np.ndarray, samples: int,
+                 wait_s: float = 0.0) -> None:
+        """Draw ``img``, and record ``wait_s`` and the draw's time in
+        ``presents``."""
+        t0 = time.perf_counter()
         self.display(
             RenderProgress(
                 samples_done=samples,
@@ -331,6 +353,10 @@ class InteractiveSession:
             "ESC/x quit\x1b[0K\n"
         )
         self.display.stream.flush()
+        self._presents.append(
+            (self._presented, wait_s * 1e3, (time.perf_counter() - t0) * 1e3)
+        )
+        self._presented += 1
 
     def run(self, max_frames: int | None = None) -> int:
         """TTY event loop: raw keyboard, render until quit.

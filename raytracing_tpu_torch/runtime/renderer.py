@@ -70,6 +70,7 @@ from ..models import integrator
 from ..ops import trace as rtrace
 from ..parallel import shard as rshard
 from ..scene.types import Scene
+from ..utils import spans
 from . import tiling as rtiling
 
 ProgressCallback = Callable[["RenderProgress"], None]
@@ -514,27 +515,32 @@ class Renderer:
         (slot order for the kernel, ``[H, W, 3]`` for xla), with no host
         synchronisation; ``fetch_image`` brings it to the host.
         """
-        spp = int(spp if spp is not None else self.params.samples_per_pixel)
-        max_depth = int(
-            max_depth if max_depth is not None else self.params.max_depth
-        )
-        self._spp_target = spp
-        cam = self.camera
-        if spp <= 0:
-            self._start_time = time.perf_counter()
-            self._end_time = self._start_time
-            self._samples_done = 0
-            return np.zeros((cam.image_height, cam.image_width, 3), np.uint8)
-        resuming = (
-            resume and self._image_sum is not None and self._samples_done > 0
-        )
-        if self.backend == "xla":
-            return self._render_xla(spp, max_depth, on_progress,
-                                    progress_every_chunks, resuming,
-                                    as_device_array)
-        return self._render_kernel(spp, max_depth, on_progress,
-                                   progress_every_chunks, resuming,
-                                   as_device_array)
+        with spans.span("rt.render"):
+            spp = int(
+                spp if spp is not None else self.params.samples_per_pixel
+            )
+            max_depth = int(
+                max_depth if max_depth is not None else self.params.max_depth
+            )
+            self._spp_target = spp
+            cam = self.camera
+            if spp <= 0:
+                self._start_time = time.perf_counter()
+                self._end_time = self._start_time
+                self._samples_done = 0
+                return np.zeros((cam.image_height, cam.image_width, 3),
+                                np.uint8)
+            resuming = (
+                resume and self._image_sum is not None
+                and self._samples_done > 0
+            )
+            if self.backend == "xla":
+                return self._render_xla(spp, max_depth, on_progress,
+                                        progress_every_chunks, resuming,
+                                        as_device_array)
+            return self._render_kernel(spp, max_depth, on_progress,
+                                       progress_every_chunks, resuming,
+                                       as_device_array)
 
     def _start(self, resuming: bool, start: int) -> None:
         if not resuming:
@@ -548,9 +554,12 @@ class Renderer:
         self._end_time = None
 
     def _finish(self, u8: torch.Tensor, as_device_array: bool):
-        image = None if as_device_array else self.fetch_image(u8)
+        image = None
         if not as_device_array:
-            self.segments_traced  # waits for the last launch's count
+            with spans.span("rt.render.readback"):
+                image = self.fetch_image(u8)
+                with spans.span("rt.readback.segments"):
+                    self.segments_traced  # waits for the last launch's count
         self._end_time = time.perf_counter()
         self._elapsed_base = self.render_time()
         self._start_time = None
@@ -604,9 +613,10 @@ class Renderer:
         self._done_budget = spp
         self._start(resuming, start)
         for chunk_index, t_end in enumerate(t_ends, start=1):
-            image_sum, segments, done = self._wave(image_sum, done, t_end,
-                                                   meta)
-            self._track(segments)
+            with spans.span("rt.render.wave"):
+                image_sum, segments, done = self._wave(image_sum, done,
+                                                       t_end, meta)
+                self._track(segments)
             # The state a checkpoint saves, current before the callback.
             self._image_sum, self._done = image_sum, done
             self._samples_done = t_end
@@ -647,21 +657,22 @@ class Renderer:
         while start < spp:
             this_chunk = min(chunk_spp, spp - start)
             for pix in blocks:
-                rows = image_sum[pix]
-                if self.mesh is None:
-                    rad, segments = integrator.render_pixels(
-                        self.scene, cam, self.base_key, pix, start,
-                        this_chunk, spp, max_depth,
-                        use_matmul=self.use_matmul, radiance_init=rows,
-                    )
-                else:
-                    rad, segments = rshard.render_pixels_sharded(
-                        self.scene, cam, self.base_key, pix, start,
-                        this_chunk, spp, max_depth, self.mesh,
-                        self.use_matmul, radiance_init=rows,
-                    )
-                image_sum.index_copy_(0, pix, rad)
-                self._track(segments)
+                with spans.span("rt.render.wave"):
+                    rows = image_sum[pix]
+                    if self.mesh is None:
+                        rad, segments = integrator.render_pixels(
+                            self.scene, cam, self.base_key, pix, start,
+                            this_chunk, spp, max_depth,
+                            use_matmul=self.use_matmul, radiance_init=rows,
+                        )
+                    else:
+                        rad, segments = rshard.render_pixels_sharded(
+                            self.scene, cam, self.base_key, pix, start,
+                            this_chunk, spp, max_depth, self.mesh,
+                            self.use_matmul, radiance_init=rows,
+                        )
+                    image_sum.index_copy_(0, pix, rad)
+                    self._track(segments)
                 self._tiles_counter += (pix.shape[0] * this_chunk
                                         ) // rtrace.DEFAULT_TILE_RAYS
             start += this_chunk
@@ -679,11 +690,13 @@ class Renderer:
         """A device u8 image in slot order (``render(as_device_array=True)``,
         ``render_frame*``) -> host ``uint8[H, W, 3]``; a preview (already
         ``[h, w, 3]``) comes back as it is."""
-        arr = u8.cpu().numpy()
+        with spans.span("rt.readback.copy"):
+            arr = u8.cpu().numpy()
         if arr.ndim == 2:
-            return _slots_to_image(
-                arr, self.camera.image_width, self.camera.image_height
-            )
+            with spans.span("rt.readback.untile"):
+                return _slots_to_image(
+                    arr, self.camera.image_width, self.camera.image_height
+                )
         return arr
 
     # -- interactive frames ------------------------------------------------
