@@ -21,7 +21,7 @@
 // flat sweep's packed key, the shade with the probe's eta (1 / max(ior,
 // 1e-3) on front faces) and its sky. It runs the megakernel's own device
 // code (regen_core.cuh: the counter hash, camera_ray_from, SharedTable
-// and stage_table, sweep_rows with its miss select and four-row trips,
+// and stage_table, sweep_rows with its lean row and four-row trips,
 // mat_decode; fetch.cuh: radix_select), so its cycles a segment are the
 // megakernel's sweep's.
 //

@@ -11,6 +11,9 @@ time of their parts on whole waves.
    (``NOP`` left out; ``LDS`` and ``LDG`` keep their width); the main loop
    is the largest over shared memory (a sweep that met a root outside
    ``fast_root``'s range sweeps again in a loop of one row a trip).
+   ``main_row_faults`` holds the main loops of ``MAIN_ROW_MAX``'s kernels
+   to their most instructions a swept row, with no call, branch out or
+   4-byte ``LDS``.
    The triangle sweep's loops (``TRI_SASS_KERNELS``: the flat and
    two-level rules in the staged body of both entries and in the chunked
    body) hold one ``MUFU.RCP`` a row (the key's reciprocal) and no
@@ -90,6 +93,10 @@ SASS_KERNELS = {
     "regen_chunked": ("regen", r"regen_chunkedILb0ELb0ELi0EE"),
     "regen_sph2l": ("regen", r"regen_chunkedILb1ELb0ELi0EE"),
 }
+# The most instructions a swept row the main loop of these kernels may take:
+# sweep_keys' lean row (regen_core.cuh) measured 32.0 and 31.75 on
+# sm_90a with CUDA 12.8, where the row_key form took 36.75 and 36.0.
+MAIN_ROW_MAX = {"regen": 32.0, "segment_full": 32.0}
 PROBE_BUILDS = {"full": (), "stage_x2": ("RT_SWEEP_PROBE=1",),
                 "sweep_x2": ("RT_SWEEP_PROBE=2",)}
 SCENES = ("stress:8192", "stress:2048", "cover")
@@ -283,6 +290,24 @@ def sass_counts(dump: str | None = None) -> dict:
     return out
 
 
+def main_row_faults(counts: dict) -> dict:
+    """The kernels of ``MAIN_ROW_MAX`` in ``sass_counts()``'s ``counts``
+    whose main loop is missing, takes more instructions a swept row than
+    allowed, branches out or reads a row by a 4-byte ``LDS``: label ->
+    what is wrong."""
+    faults = {}
+    for label, most in MAIN_ROW_MAX.items():
+        main = counts[label]["main"]
+        if main is None:
+            faults[label] = "no main loop"
+        elif main["instructions_per_row"] > most:
+            faults[label] = (f"{main['instructions_per_row']:.2f} "
+                             f"instructions a row, more than {most:g}")
+        elif main["branches_out"] or "LDS" in main["opcodes_per_row"]:
+            faults[label] = "a call, a branch out or a 4-byte LDS"
+    return faults
+
+
 def describe_sass(label: str, r: dict) -> str:
     """One line: the kernel's main per-lane sweep loop (four rows a trip
     over shared memory) per row, and its cooperative loops."""
@@ -391,6 +416,7 @@ def run(do_sass: bool = True, do_parts: bool = True, scenes=SCENES,
            "card": profile_render.card_line()}
     if do_sass:
         res["sass"] = sass_counts(dump=dump)
+        res["main_row_faults"] = main_row_faults(res["sass"])
         res["tri_sass"] = tri_sass_counts(dump=dump)
         _build.load("regen")
         kernels = {**SASS_KERNELS, **TRI_SASS_KERNELS}
@@ -438,6 +464,8 @@ def main(argv: list[str] | None = None) -> int:
         print(describe_sass(label, r))
     for label, r in res.get("tri_sass", {}).items():
         print(describe_tri_sass(label, r))
+    if "main_row_faults" in res:
+        print(f"main row faults: {res['main_row_faults']}")
     print(f"registers: {res.get('registers')}")
     for name, r in res.get("parts", {}).items():
         print(f"{name} [{r['variant']}, {r['blocks_per_sm']} blocks/SM] "

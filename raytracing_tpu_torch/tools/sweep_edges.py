@@ -12,6 +12,12 @@ arithmetic below is exact in float32, without multiply-adds):
 * ``denormal``: the grazing rays of length 2^-63 from origins a few ulps
   inside or outside the silhouette: ``delta`` a positive or negative
   denormal;
+* ``tiny``: the grazing rays at directions of length 2^-50 (``a`` =
+  2^-100) from origins a few ulps outside or inside the silhouette:
+  ``delta`` a negative or positive normal float of magnitude below
+  2^-101. The flat sweep's lean row flags a positive one for its
+  ``sqrtf`` re-sweep and takes ``fast_root``'s NaN of a negative one,
+  unflagged, as a miss;
 * ``overflow``: origins at 1e20, where ``o.o`` overflows: ``h*h`` finite
   and ``a*cq`` infinite (``delta`` -inf), or both infinite (NaN);
 * ``pad``: rays from the world origin at each sphere's centre, through
@@ -71,6 +77,7 @@ SPHERES = (
     ((-4.0, 2.0, -6.0), 1.0, "dielectric", 1.5),
 )
 TINY = np.float32(2.0 ** -63)
+TINY_NORMAL = np.float32(2.0 ** -50)
 RAYS = 1024
 PADDED_ROWS = 2048
 TINY_FOCUS = 2.0 ** -60
@@ -299,6 +306,9 @@ def edge_rays(seed: int = 0, n: int = RAYS):
     for k in (1, 2, 3):
         parts += [("denormal", *_grazing(TINY, k)),
                   ("denormal", *_grazing(TINY, -k))]
+    for k in (1, 2, 3):
+        parts += [("tiny", *_grazing(TINY_NORMAL, k)),
+                  ("tiny", *_grazing(TINY_NORMAL, -k))]
     parts += [("overflow", *_overflow()), ("pad", *_pad())]
     used = sum(len(p[1]) for p in parts)
     rng = np.random.default_rng(seed)

@@ -116,3 +116,41 @@ def test_backward_branches_plain_or_uniform():
                                              (0x10, 0x110)]
     assert sass.backward_branches(insns, uniform=False) == [(0x20, 0xB0),
                                                             (0xC0, 0xF0)]
+
+
+def _counts_with_main(per_row: float, ops: dict | None = None,
+                      branches_out: bool = False) -> dict:
+    main = {"rows_per_trip": 4, "instructions_per_row": per_row,
+            "opcodes_per_row": ops or {"LDS.128": 2.0},
+            "memory": "shared", "branches_out": branches_out}
+    return {label: {"main": main} for label in probe_sweep.MAIN_ROW_MAX}
+
+
+@pytest.mark.parametrize("per_row,ops,branches_out,faulty", [
+    (32.0, None, False, False),   # the lean row's most
+    (31.75, None, False, False),
+    (32.25, None, False, True),
+    (36.0, None, False, True),    # the row_key form's row
+    (31.0, None, True, True),     # a call, BSSY or BSYNC in the loop
+    (31.0, {"LDS.128": 2.0, "LDS": 1.0}, False, True),
+])
+def test_main_row_faults_hold_the_lean_row(per_row, ops, branches_out,
+                                           faulty):
+    # chip_smoke.py's sweep SASS line fails on these faults of the staged
+    # body's and the segment probe's main loops.
+    assert probe_sweep.MAIN_ROW_MAX == {"regen": 32.0, "segment_full": 32.0}
+    faults = probe_sweep.main_row_faults(
+        _counts_with_main(per_row, ops, branches_out))
+    assert sorted(faults) == (sorted(probe_sweep.MAIN_ROW_MAX) if faulty
+                              else [])
+
+
+def test_main_row_faults_without_a_main_loop():
+    counts = {label: {"main": None} for label in probe_sweep.MAIN_ROW_MAX}
+    assert set(probe_sweep.main_row_faults(counts)) == set(
+        probe_sweep.MAIN_ROW_MAX)
+    # The listing above: its staged loop takes 4.5 instructions a row.
+    insns = sass.functions(_LISTING)["_Z12regen_stagedILb0ELi0EEvv"]
+    main = probe_sweep.sweep_loops(insns)[0]
+    assert not probe_sweep.main_row_faults(
+        {label: {"main": main} for label in probe_sweep.MAIN_ROW_MAX})

@@ -4,7 +4,8 @@ The sweep's miss select (``csrc/regen_core.cuh``, ``sphere_key``) takes
 the root of the discriminant only where it is >= 0 and keeps every other
 pair's key at the miss key, where the root of the raw discriminant was
 NaN. These rays (``raytracing_tpu_torch/tools/sweep_edges.py``) put the
-discriminant at +0, at positive and negative denormals, at -inf and NaN
+discriminant at +0, at positive and negative denormals, at normals of both
+signs below 2^-101 in magnitude, at -inf and NaN
 (origins at 1e20) and through the pad rows (cm2 = 1e30), on a scene of
 three spheres with small-integer coordinates. The kernel holds them bit
 for bit against the plain version on the card (``tests/test_torch_cuda.py``
@@ -68,6 +69,9 @@ def test_edge_rays_reach_every_case():
     assert (by["tangent"] == 0).sum() == len(by["tangent"])
     den = by["denormal"][np.abs(by["denormal"]) < _TINY]
     assert (den > 0).sum() >= 12 and (den < 0).sum() >= 12
+    tiny = by["tiny"][np.abs(by["tiny"]) < 2.0 ** -101]
+    assert (tiny > 0).sum() >= 36 and (tiny < 0).sum() >= 36
+    assert (np.abs(tiny) >= _TINY).all()  # normal floats below 2^-101
     assert np.isnan(by["overflow"]).any()
     assert np.isneginf(by["overflow"]).any()
     # -0.0 cannot arise: h*h is never -0.0.
