@@ -123,6 +123,7 @@ def render_pixels_fused_sharded(
     map_param: int | None = None,
     radiance_sum: torch.Tensor | None = None,
     gather: str | None = None,
+    counts: bool = False,
 ):
     """The regeneration kernel over the mesh: one launch per shard, each on
     its shard's device (``ops/trace.py::render_pixels_fused``).
@@ -149,7 +150,9 @@ def render_pixels_fused_sharded(
     first device, is continued by sample shard 0 and updated in place.
 
     Returns ``(radiance_sum, segments)`` and, in work-ahead, the updated
-    ``done``; all on the mesh's first device.
+    ``done``; all on the mesh's first device. ``counts``: the shards'
+    int64[4] count buffers summed in place of the segments
+    (``render_pixels_fused``'s).
     """
     n_px = mesh.shape[AXIS_PIXELS]
     n_sp = mesh.shape[AXIS_SAMPLES]
@@ -219,7 +222,7 @@ def render_pixels_fused_sharded(
                 sample_start=int(sample_start) + lo, spp=local_spp,
                 max_depth=max_depth, t_end=te, done=done_local,
                 num_slots=local_slots, pixel_order=pixel_order,
-                radiance_sum=rs, gather=gather,
+                radiance_sum=rs, gather=gather, counts=counts,
             )
             if work_ahead:
                 done_out[r0:r0 + rows] = d_out.reshape(rows, 128).to(first)
@@ -234,5 +237,5 @@ def render_pixels_fused_sharded(
         rad = radiance_sum
     else:
         rad = torch.cat(rad_out)
-    seg = torch.stack(segments).sum()
+    seg = torch.stack(segments).sum(dim=0)
     return (rad, seg, done_out) if work_ahead else (rad, seg)

@@ -257,10 +257,13 @@ class Renderer:
         self._scene_hash: bytes | None = None
         self._samples_done = 0
         self._segments = 0
-        # (segment count, event): a wave's segment scalar (copied to pinned
-        # host memory on CUDA, with the event that marks the copy done).
-        # The lock guards _segments and this list: the pipelined
-        # interactive session drains it from its worker thread.
+        # The cull's work since the render started (cull_counts).
+        self._cull = [0] * len(rtrace.CULL_COUNTS)
+        # (counts, event): a launch's segment scalar or count buffer
+        # (copied to pinned host memory on CUDA, with the event that marks
+        # the copy done). The lock guards _segments, _cull and this list:
+        # the pipelined interactive session drains it from its worker
+        # thread.
         self._pending_segments: list = []
         self._seg_lock = threading.Lock()
         self._start_time: float | None = None
@@ -316,11 +319,14 @@ class Renderer:
         return min(self._samples_done / self._spp_target, 1.0)
 
     def _track(self, segments: torch.Tensor) -> None:
-        """Queue a launch's segment scalar; on CUDA it is copied to pinned
-        host memory behind the launch, with an event to test it by."""
+        """Queue a launch's segment scalar or its int64[4] count buffer
+        (``render_pixels_fused``'s ``counts``); on CUDA it is copied to
+        pinned host memory behind the launch, with an event to test it
+        by."""
         event = None
         if segments.device.type == "cuda":
-            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            host = torch.empty(segments.shape, dtype=torch.int64,
+                               pin_memory=True)
             host.copy_(segments, non_blocking=True)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(segments.device))
@@ -337,8 +343,28 @@ class Renderer:
             for count, event in pending:
                 if event is not None:
                     event.synchronize()
-                self._segments += int(count)
+                self._fold(count)
             return self._segments
+
+    def _fold(self, count: torch.Tensor) -> None:
+        """Add a launch's host counts (under ``_seg_lock``)."""
+        c = count.reshape(-1).tolist()
+        self._segments += c[0]
+        for k, v in enumerate(c[1:]):
+            self._cull[k] += v
+
+    @property
+    def cull_counts(self) -> dict:
+        """The cull's work in the kernel's chunked sphere sweep since the
+        render started, by ``rtrace.CULL_COUNTS``: ``lane_passes`` the
+        (ray, block) pairs whose gate passed, ``block_visits`` the (thread
+        block, block) visits of the lock step and ``chunk_copies`` those
+        whose vote copied the chunk; all zero where the table is staged.
+        Taken with the segments (``segments_traced``), so it waits as
+        that does."""
+        self.segments_traced
+        with self._seg_lock:
+            return dict(zip(rtrace.CULL_COUNTS, self._cull))
 
     @property
     def segments_traced_ready(self) -> int:
@@ -349,7 +375,7 @@ class Renderer:
         with self._seg_lock:
             pend = self._pending_segments
             while pend and (pend[0][1] is None or pend[0][1].query()):
-                self._segments += int(pend.pop(0)[0])
+                self._fold(pend.pop(0)[0])
             return self._segments
 
     def render_time(self) -> float:
@@ -373,6 +399,7 @@ class Renderer:
         self._samples_done = 0
         with self._seg_lock:
             self._segments = 0
+            self._cull = [0] * len(rtrace.CULL_COUNTS)
             self._pending_segments = []
         self._elapsed_base = 0.0
         self._tiles_counter = 0
@@ -471,11 +498,12 @@ class Renderer:
 
     def _wave(self, image_sum, done, t_end, meta):
         """One kernel wave over every slot (sharded under a mesh); returns
-        ``(image_sum, segments, done)``, the sums continued in place."""
+        ``(image_sum, counts, done)`` (``counts``: the int64[4] buffer of
+        ``render_pixels_fused``), the sums continued in place."""
         if self.mesh is None:
             return rtrace.render_pixels_fused(
                 self._tables, self._cam_host, t_end=t_end, done=done,
-                radiance_sum=image_sum, **meta,
+                radiance_sum=image_sum, counts=True, **meta,
             )
         rad, segments, done2 = rshard.render_pixels_fused_sharded(
             self._tables_by_device(), self._cam_host, meta["slot_base"],
@@ -483,7 +511,7 @@ class Renderer:
             meta["max_depth"], meta["num_slots"], self.mesh,
             meta["pixel_order"], done.view(-1, 128), t_end,
             map_param=meta["map_param"], radiance_sum=image_sum,
-            gather=meta["gather"],
+            gather=meta["gather"], counts=True,
         )
         return rad, segments, done2.reshape(-1)
 
@@ -546,6 +574,7 @@ class Renderer:
         if not resuming:
             with self._seg_lock:
                 self._segments = 0
+                self._cull = [0] * len(rtrace.CULL_COUNTS)
                 self._pending_segments = []
             self._elapsed_base = 0.0
             self._tiles_counter = 0
@@ -614,9 +643,9 @@ class Renderer:
         self._start(resuming, start)
         for chunk_index, t_end in enumerate(t_ends, start=1):
             with spans.span("rt.render.wave"):
-                image_sum, segments, done = self._wave(image_sum, done,
-                                                       t_end, meta)
-                self._track(segments)
+                image_sum, counts, done = self._wave(image_sum, done,
+                                                     t_end, meta)
+                self._track(counts)
             # The state a checkpoint saves, current before the callback.
             self._image_sum, self._done = image_sum, done
             self._samples_done = t_end
@@ -958,6 +987,7 @@ class Renderer:
             self._samples_done = int(data["samples_done"])
             with self._seg_lock:
                 self._segments = int(data["segments"])
+                self._cull = [0] * len(rtrace.CULL_COUNTS)
                 self._pending_segments = []
             self._tiles_counter = int(data["tiles_counter"])
             self._elapsed_base = float(data["elapsed"])

@@ -31,6 +31,17 @@ thread:
 The profiler records only on the thread that entered it, so the session's
 presenter, on a worker thread, keeps a counter instead
 (``InteractiveSession.presents``, on the host's clock).
+
+The counters, taken with the segments in ``rt.readback.segments``'s wait
+(``Renderer.cull_counts``, per render; ``ops/trace.py::CULL_COUNTS``; the
+kernel adds them at its end, ``regen.cu::add_counts``, in the chunked
+sphere sweep only, zero where the table is staged):
+
+    lane_passes    (ray, block) pairs whose cull gate passed (every block
+                   of a live ray without bound tables)
+    chunk_copies   (thread block, block) visits of the lock step whose
+                   vote copied the chunk
+    block_visits   every such visit
 """
 
 from __future__ import annotations
