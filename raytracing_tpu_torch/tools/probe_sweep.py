@@ -13,7 +13,8 @@ time of their parts on whole waves.
    ``fast_root``'s range sweeps again in a loop of one row a trip).
    ``main_row_faults`` holds the main loops of ``MAIN_ROW_MAX``'s kernels
    to their most instructions a swept row, with no call, branch out or
-   4-byte ``LDS``.
+   4-byte ``LDS``; ``coop_row_faults`` the cooperative loops of
+   ``COOP_ROW_MAX``'s kernels to theirs (below).
    The triangle sweep's loops (``TRI_SASS_KERNELS``: the flat and
    two-level rules in the staged body of both entries and in the chunked
    body) hold one ``MUFU.RCP`` a row (the key's reciprocal) and no
@@ -95,8 +96,17 @@ SASS_KERNELS = {
 }
 # The most instructions a swept row the main loop of these kernels may take:
 # sweep_keys' lean row (regen_core.cuh) measured 32.0 and 31.75 on
-# sm_90a with CUDA 12.8, where the row_key form took 36.75 and 36.0.
-MAIN_ROW_MAX = {"regen": 32.0, "segment_full": 32.0}
+# sm_90a with CUDA 12.8, where the row_key form took 36.75 and 36.0; the
+# two-level windows' lean row (regen.cu, sweep_window_keys: the per-lane
+# loop of the chunks that 29 or more lanes pass) 32.75, where the row_key
+# form took 37.5.
+MAIN_ROW_MAX = {"regen": 32.0, "segment_full": 32.0, "regen_sph2l": 32.75}
+# The most instructions a row the cooperative loops of the chunked bodies
+# may take (regen.cu, sphere_chunk_warp: four lean rows a lane a trip, with
+# the ray's load, the reductions, the vote and the keep): 37.25 under the
+# two-level rule and 34.25 under the flat rule on sm_90a with CUDA 12.8,
+# where the row_key form took 40.25 and 37.25.
+COOP_ROW_MAX = {"regen_sph2l": 37.25, "regen_chunked": 34.25}
 PROBE_BUILDS = {"full": (), "stage_x2": ("RT_SWEEP_PROBE=1",),
                 "sweep_x2": ("RT_SWEEP_PROBE=2",)}
 SCENES = ("stress:8192", "stress:2048", "cover")
@@ -308,6 +318,23 @@ def main_row_faults(counts: dict) -> dict:
     return faults
 
 
+def coop_row_faults(counts: dict) -> dict:
+    """The kernels of ``COOP_ROW_MAX`` in ``sass_counts()``'s ``counts``
+    without a cooperative loop, or with one that takes more instructions a
+    row than allowed: label -> what is wrong."""
+    faults = {}
+    for label, most in COOP_ROW_MAX.items():
+        loops = counts[label]["coop"]
+        if not loops:
+            faults[label] = "no cooperative loop"
+            continue
+        worst = max(lp["instructions_per_row"] for lp in loops)
+        if worst > most:
+            faults[label] = (f"{worst:.2f} instructions a row, more than "
+                             f"{most:g}")
+    return faults
+
+
 def describe_sass(label: str, r: dict) -> str:
     """One line: the kernel's main per-lane sweep loop (four rows a trip
     over shared memory) per row, and its cooperative loops."""
@@ -417,6 +444,7 @@ def run(do_sass: bool = True, do_parts: bool = True, scenes=SCENES,
     if do_sass:
         res["sass"] = sass_counts(dump=dump)
         res["main_row_faults"] = main_row_faults(res["sass"])
+        res["coop_row_faults"] = coop_row_faults(res["sass"])
         res["tri_sass"] = tri_sass_counts(dump=dump)
         _build.load("regen")
         kernels = {**SASS_KERNELS, **TRI_SASS_KERNELS}
@@ -466,6 +494,7 @@ def main(argv: list[str] | None = None) -> int:
         print(describe_tri_sass(label, r))
     if "main_row_faults" in res:
         print(f"main row faults: {res['main_row_faults']}")
+        print(f"cooperative row faults: {res['coop_row_faults']}")
     print(f"registers: {res.get('registers')}")
     for name, r in res.get("parts", {}).items():
         print(f"{name} [{r['variant']}, {r['blocks_per_sm']} blocks/SM] "

@@ -137,12 +137,36 @@ def _counts_with_main(per_row: float, ops: dict | None = None,
 def test_main_row_faults_hold_the_lean_row(per_row, ops, branches_out,
                                            faulty):
     # chip_smoke.py's sweep SASS line fails on these faults of the staged
-    # body's and the segment probe's main loops.
-    assert probe_sweep.MAIN_ROW_MAX == {"regen": 32.0, "segment_full": 32.0}
+    # body's and the segment probe's main loops (``faulty``), and of the
+    # two-level dense window's above its own most.
+    assert probe_sweep.MAIN_ROW_MAX == {"regen": 32.0, "segment_full": 32.0,
+                                        "regen_sph2l": 32.75}
     faults = probe_sweep.main_row_faults(
         _counts_with_main(per_row, ops, branches_out))
-    assert sorted(faults) == (sorted(probe_sweep.MAIN_ROW_MAX) if faulty
-                              else [])
+    assert ("regen" in faults) == ("segment_full" in faults) == faulty
+    assert sorted(faults) == sorted(
+        label for label, most in probe_sweep.MAIN_ROW_MAX.items()
+        if per_row > most or branches_out or "LDS" in (ops or {}))
+
+
+@pytest.mark.parametrize("per_row", [34.25, 34.5, 37.25, 37.5, 40.25])
+def test_coop_row_faults_hold_the_lean_row(per_row):
+    # chip_smoke.py's sweep SASS line fails on a cooperative loop of the
+    # chunked bodies above its kernel's most instructions a row: the lean
+    # row's counts pass, the row_key form's (40.25 two-level, 37.25 flat)
+    # do not.
+    assert probe_sweep.COOP_ROW_MAX == {"regen_sph2l": 37.25,
+                                        "regen_chunked": 34.25}
+    loop = {"rows_per_trip": 4, "redux_per_trip": 2,
+            "instructions_per_row": per_row}
+    counts = {label: {"coop": [loop]} for label in probe_sweep.COOP_ROW_MAX}
+    faults = probe_sweep.coop_row_faults(counts)
+    assert sorted(faults) == sorted(
+        label for label, most in probe_sweep.COOP_ROW_MAX.items()
+        if per_row > most)
+    none = {label: {"coop": []} for label in probe_sweep.COOP_ROW_MAX}
+    assert set(probe_sweep.coop_row_faults(none)) == set(
+        probe_sweep.COOP_ROW_MAX)
 
 
 def test_main_row_faults_without_a_main_loop():
