@@ -8,12 +8,14 @@ edited source or header rebuilds) and loaded with ``ctypes``. Nothing here
 runs at import time, and nothing falls back: a missing ``nvcc`` or a failed
 build raises. ``build_all`` runs one ``nvcc`` per source, all at once;
 ``build_host`` builds a host C++ library the same way with ``c++``.
-``launch`` calls a C launcher on a device's current stream at the least
-host cost a call.
+``launch`` is every kernel's launcher: it calls a C launcher on a device's
+current stream at the least host cost a call, raises on its error code and
+counts the launch in ``launch_counts``, the one registry of launches.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -133,6 +135,12 @@ _ARGTYPES = {
 KERNELS = tuple(_ARGTYPES)
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# Launches since the last reset_launch_counts(), by the key each launcher
+# passes to launch(): the megakernel's variants (ops/trace.py::VARIANTS,
+# ROUTE_VARIANTS) and the other kernels' modes (fetch_*, segment_*,
+# worklist_*, divide_*, dtype_*, features_*, sweep_root, key_rcp). A key
+# never launched reads 0.
+launch_counts: collections.Counter = collections.Counter()
 # Per kernel: build seconds (0.0 when the library was already built) and
 # the compiler's resource report (registers, shared memory, stack and
 # spills).
@@ -302,17 +310,34 @@ def swapped(name: str, defines=()):
             _loaded[name] = prev
 
 
-def error_string(lib: ctypes.CDLL, err: int) -> str:
-    return f"{err} ({lib.rt_error_string(err).decode()})"
+def reset_launch_counts() -> None:
+    launch_counts.clear()
 
 
-def launch(fn, device: torch.device, *args) -> int:
-    """``fn(*args, stream)``: a C launcher of a library of ``load``, called
-    with the raw pointer of ``device``'s current stream (no Stream object
-    is built), switching the current device only where ``device`` is not
-    it. Returns ``fn``'s error code."""
-    index = device.index
-    if index == torch._C._cuda_getDevice():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    with torch.cuda.device(index):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise ``RuntimeError`` naming ``what`` where a C entry of ``lib``
+    returned the error code ``err`` (0 is success)."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what} failed: {err} ({lib.rt_error_string(err).decode()})")
+
+
+def launch(name: str, entry: str, device: torch.device, *args,
+           count: str) -> None:
+    """``entry(*args, stream)``: the C launcher ``entry`` of kernel
+    ``name``'s library (``load``'s, or the build ``swapped`` puts in its
+    place), called with the raw pointer of ``device``'s current stream (no
+    Stream object is built), switching the current device only where
+    ``device`` is not it. Raises ``RuntimeError`` on a non-zero code and
+    counts nothing; else adds one to ``launch_counts[count]``."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(lib, err, f"{count} launch ({entry})")
+    launch_counts[count] += 1

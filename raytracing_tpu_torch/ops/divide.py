@@ -34,15 +34,8 @@ from . import _build
 
 MODES = ("ieee", "rn", "fast", "approx")
 
-# Launches of csrc/divide.cu per mode.
-launch_counts = {f"divide_{m}": 0 for m in MODES}
 # Per mode: the kernel's mode id and the launch counter's key.
 _MODE_IDS = {m: (i, f"divide_{m}") for i, m in enumerate(MODES)}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def inputs(seed: int = 7):
@@ -126,12 +119,7 @@ def _launch_cuda(x, num, mode):
     recip = torch.empty_like(x)
     quot = torch.empty_like(x)
     mode_id, key = _MODE_IDS[mode]
-    lib = _build.load("divide")
-    err = _build.launch(lib.rt_divide_launch, x.device, x.data_ptr(),
-                        num.data_ptr(), recip.data_ptr(), quot.data_ptr(),
-                        x.numel(), mode_id)
-    if err != 0:
-        raise RuntimeError(f"divide kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts[key] += 1
+    _build.launch("divide", "rt_divide_launch", x.device, x.data_ptr(),
+                  num.data_ptr(), recip.data_ptr(), quot.data_ptr(),
+                  x.numel(), mode_id, count=key)
     return recip, quot

@@ -65,14 +65,6 @@ STREAMS = 8
 COLS = 128
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i16": torch.int16}
 
-# Launches of csrc/dtype.cu per mode.
-launch_counts = {f"dtype_{m}": 0 for m in MODES}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 def mode_dtype(mode: str) -> torch.dtype:
     if mode not in RATE_MODES:
@@ -298,14 +290,9 @@ def _launch_bitcast(x, halves):
     shape = x.shape
     out = x.new_empty((*shape[:-2], 2 * shape[-2], COLS), dtype=torch.int16)
     hv = x.new_empty(2, dtype=torch.int32) if halves else None
-    lib = _build.load("dtype")
-    err = _build.launch(lib.rt_dtype_bitcast_launch, x.device, x.data_ptr(),
-                        out.data_ptr(), hv.data_ptr() if halves else None,
-                        x.numel())
-    if err != 0:
-        raise RuntimeError(f"dtype bitcast kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts["dtype_bitcast"] += 1
+    _build.launch("dtype", "rt_dtype_bitcast_launch", x.device, x.data_ptr(),
+                  out.data_ptr(), hv.data_ptr() if halves else None,
+                  x.numel(), count="dtype_bitcast")
     return (out, hv) if halves else out
 
 
@@ -317,12 +304,7 @@ def _launch_rate(a, b, mode, iters):
         raise ValueError("a and b must be 4-byte aligned")
     out = torch.empty_like(a)
     words = a.numel() * a.element_size() // 4
-    lib = _build.load("dtype")
-    err = _build.launch(lib.rt_dtype_rate_launch, a.device, a.data_ptr(),
-                        b.data_ptr(), out.data_ptr(), words,
-                        RATE_MODES.index(mode), iters)
-    if err != 0:
-        raise RuntimeError(f"dtype rate kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts[f"dtype_{mode}"] += 1
+    _build.launch("dtype", "rt_dtype_rate_launch", a.device, a.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), words,
+                  RATE_MODES.index(mode), iters, count=f"dtype_{mode}")
     return out

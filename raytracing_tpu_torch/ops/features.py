@@ -42,8 +42,6 @@ MODES = ("bf16_cmp", "i16_relayout", "i16_hoisted", "dyn_gather")
 ROWS, COLS, TAB_ROWS = 8, 128, 64
 SECTOR = 32  # bytes
 
-# Launches of csrc/features.cu per mode.
-launch_counts = {f"features_{m}": 0 for m in MODES}
 # Per mode: the (dtype, tail shape) of each tensor it takes, the kernel's
 # mode id and the launch counter's key.
 _SELECT = ((torch.float32, (ROWS, COLS)), (torch.int32, (1, COLS)))
@@ -53,11 +51,6 @@ _SPECS = {m: (want, MODES.index(m), f"features_{m}") for m, want in (
     ("i16_hoisted", _SELECT),
     ("dyn_gather", ((torch.float32, (TAB_ROWS, COLS)),
                     (torch.int32, (ROWS, COLS)))))}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def inputs(mode: str) -> tuple:
@@ -228,11 +221,6 @@ def _launch_cuda(mode, args):
     units = args[-1].numel() // (args[-1].shape[-2] * COLS)
     out = _output(mode, args)
     b = args[1].data_ptr() if len(args) > 1 else None
-    lib = _build.load("features")
-    err = _build.launch(lib.rt_features_launch, a.device, a.data_ptr(), b,
-                        out.data_ptr(), units, mode_id)
-    if err != 0:
-        raise RuntimeError(f"features kernel launch failed ({mode}): "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts[key] += 1
+    _build.launch("features", "rt_features_launch", a.device, a.data_ptr(),
+                  b, out.data_ptr(), units, mode_id, count=key)
     return out

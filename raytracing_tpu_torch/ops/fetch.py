@@ -66,15 +66,6 @@ _PLANE_ROWS = 128
 WARP = 32
 SWEEP_ROWS = 4
 
-# Launches of csrc/fetch.cu per mode (``fetch_rows``), and of the one-hot
-# mode's plane prepass (``fetch_planes``).
-launch_counts = {**{f"fetch_{m}": 0 for m in MODES}, "fetch_planes": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 def env_settings() -> tuple[bool, bool]:
     """``(radix_rows, radix_windows)`` from the environment, read as the
@@ -429,16 +420,9 @@ def fetch_planes(table: torch.Tensor) -> torch.Tensor:
     n, c = table.shape
     k_pad, width = plane_shape(n, c)
     planes = torch.empty(k_pad * width, dtype=torch.int16, device=table.device)
-    lib = _build.load("fetch")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.rt_fetch_planes_launch(table.data_ptr(), n, c,
-                                         planes.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fetch plane prepass launch failed: {_build.error_string(lib, err)}"
-        )
-    launch_counts["fetch_planes"] += 1
+    _build.launch("fetch", "rt_fetch_planes_launch", table.device,
+                  table.data_ptr(), n, c, planes.data_ptr(),
+                  count="fetch_planes")
     return planes
 
 
@@ -456,16 +440,9 @@ def _launch_fetch_cuda(table, sel, mode, iters):
     g = sel.numel()
     planes = fetch_planes(table) if mode == "onehot" else None
     out = torch.empty((c, g), dtype=torch.int32, device=table.device)
-    lib = _build.load("fetch")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.rt_fetch_launch(table.data_ptr(), n, c, sel.data_ptr(), g,
-                                  out.data_ptr(), _MODE_IDS[mode], iters,
-                                  None if planes is None else planes.data_ptr(),
-                                  stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fetch kernel launch failed: {_build.error_string(lib, err)}"
-        )
-    launch_counts[f"fetch_{mode}"] += 1
+    _build.launch("fetch", "rt_fetch_launch", table.device,
+                  table.data_ptr(), n, c, sel.data_ptr(), g, out.data_ptr(),
+                  _MODE_IDS[mode], iters,
+                  None if planes is None else planes.data_ptr(),
+                  count=f"fetch_{mode}")
     return out

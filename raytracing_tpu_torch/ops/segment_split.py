@@ -41,14 +41,6 @@ GRID_COLS = 400
 # Rows of the staged table (regen_core.cuh kStageRows).
 MAX_ROWS = 1024
 
-# Launches of csrc/segment_split.cu per variant.
-launch_counts = {f"segment_{v}": 0 for v in VARIANTS}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 def _check(tables: rtrace.SceneTables, slots: int, steps: int,
            variant: str) -> None:
@@ -282,17 +274,12 @@ def _launch_cuda(tables, cam, seed, steps, slots, variant, clocks):
     rad = torch.empty((3, slots), dtype=torch.float32, device=dev)
     hits = torch.empty((slots,), dtype=torch.int32, device=dev)
     cam_host = (ctypes.c_float * 20)(*rtrace._camera_vector(cam).tolist())
-    lib = _build.load("segment_split")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rt_segment_split_launch(
-            tables.geom_h.data_ptr(), tables.geom_c.data_ptr(),
-            tables.shade.data_ptr(), tables.n_pad, cam_host,
-            seed & 0xFFFFFFFF, steps, slots, VARIANTS.index(variant),
-            rad.data_ptr(), hits.data_ptr(), clocks.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"segment-split kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts[f"segment_{variant}"] += 1
+    _build.launch(
+        "segment_split", "rt_segment_split_launch", dev,
+        tables.geom_h.data_ptr(), tables.geom_c.data_ptr(),
+        tables.shade.data_ptr(), tables.n_pad, cam_host,
+        seed & 0xFFFFFFFF, steps, slots, VARIANTS.index(variant),
+        rad.data_ptr(), hits.data_ptr(), clocks.data_ptr(),
+        count=f"segment_{variant}",
+    )
     return rad, hits

@@ -44,14 +44,6 @@ MODES = ("static", "conds", "worklist")
 _BIGF = 3.0e38
 _NOHIT = int(np.float32(_BIGF).view(np.int32)) & ~(BLK - 1)
 
-# Launches of csrc/worklist.cu per mode.
-launch_counts = {f"worklist_{m}": 0 for m in MODES}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 def inputs(pass_groups: int, seed: int = 0):
     """``(tab f32[4096, 7], rays f32[48, 128], votes i32[8, 8])`` of the
@@ -160,15 +152,8 @@ def _launch_cuda(tab, rays, votes, reps, mode):
     units = rays.shape[0]
     out = torch.empty((units, GROUPS, LANES), dtype=torch.int32,
                       device=tab.device)
-    lib = _build.load("worklist")
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
-        err = lib.rt_worklist_launch(tab.data_ptr(), rays.data_ptr(),
-                                     votes.data_ptr(), units, reps,
-                                     MODES.index(mode), out.data_ptr(),
-                                     stream)
-    if err != 0:
-        raise RuntimeError(f"worklist kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    launch_counts[f"worklist_{mode}"] += 1
+    _build.launch("worklist", "rt_worklist_launch", tab.device,
+                  tab.data_ptr(), rays.data_ptr(), votes.data_ptr(), units,
+                  reps, MODES.index(mode), out.data_ptr(),
+                  count=f"worklist_{mode}")
     return out

@@ -79,6 +79,8 @@ for name in sys.argv[2:]:
     tables = rtrace.pack_scene(scene.to(dev), origin=o.mean(dim=0))
     rad, seg = rtrace.trace_rays_fused(tables, o, d, 7, 0, 8)
     torch.cuda.synchronize()
+    # Events inline, not profile_render.device_ms: a parent tree may
+    # predate that helper.
     ms = []
     for _ in range(int(sys.argv[1])):
         a = torch.cuda.Event(enable_timing=True)

@@ -44,6 +44,7 @@ import torch
 from .. import Renderer, build_world, derive, load_world
 from ..ops import trace as rtrace
 from ..runtime.interactive import InteractiveSession, OrbitState, _orbit_from_params
+from . import profile_render
 
 WORLD = (pathlib.Path(__file__).resolve().parents[2]
          / "data" / "config" / "world.config.json")
@@ -112,14 +113,9 @@ def _frames_ms(r: Renderer, frames: int, spp: int) -> tuple[float, np.ndarray]:
     r.frame_accum_reset()
     r.render_frame_accum(spp=spp)
     r.frame_accum_reset()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    start.record()
-    for _ in range(frames):
-        dev, _ = r.render_frame_accum(spp=spp)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end), r.fetch_image(dev)
+    (dev, _), ms = profile_render.device_ms(
+        lambda: r.render_frame_accum(spp=spp), frames)
+    return ms * frames, r.fetch_image(dev)
 
 
 def cull_order(scene, params, *, frames: int = 8, spp: int = 4,

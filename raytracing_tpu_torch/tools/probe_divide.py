@@ -47,7 +47,7 @@ import torch
 from ..ops import _build
 from ..ops import divide as rdiv
 from . import profile_render, sass
-from .probe_fetch import device_text, median_ms, split
+from .probe_fetch import device_text, split
 
 
 def ulp_stats(x: torch.Tensor, num: torch.Tensor, recip: torch.Tensor,
@@ -131,8 +131,8 @@ def run(calls: int = 5, loops: int = 200, large: int = 1 << 24) -> dict:
            calls, prefix="library_")
     _timed(res, lambda: (torch.reciprocal(lx), torch.div(ln, lx)), 5, calls,
            "_large", "library_")
-    res["plain_ms"] = median_ms(lambda: rdiv.divide_reference(x, num),
-                                calls, loops)
+    res["plain_ms"] = profile_render.median_ms(
+        lambda: rdiv.divide_reference(x, num), calls, loops)
     res["bound_ms"] = bound_ms(x.numel())
     res["bound_ms_large"] = bound_ms(large)
     res["elements"] = x.numel()

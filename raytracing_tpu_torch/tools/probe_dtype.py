@@ -58,7 +58,7 @@ import torch
 from ..ops import _build
 from ..ops import dtype as rdt
 from . import profile_render, sass
-from .probe_fetch import device_text, median_ms, split
+from .probe_fetch import device_text, split
 from .probe_segment_split import sm_clock_mhz
 from .sass import backward_branches, cuobjdump, functions
 
@@ -219,7 +219,8 @@ def probe_rate(mode: str, units: int, iters: int, calls: int) -> dict:
     dev = torch.device("cuda")
     a, b = (rdt.replicate(t, units).to(dev) for t in
             rdt.inputs(rdt.mode_dtype(mode)))
-    ms = median_ms(lambda: rdt.rate(a, b, mode, iters), calls)
+    ms = profile_render.median_ms(lambda: rdt.rate(a, b, mode, iters),
+                                  calls)
     clock = sm_clock_mhz()
     steps = rdt.element_steps(a.numel(), iters)
     nbytes = 3 * a.numel() * a.element_size()

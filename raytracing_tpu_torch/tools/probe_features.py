@@ -35,7 +35,7 @@ from ..ops import _build
 from ..ops import features as rfeat
 from ..ops.dtype import bits_equal
 from . import profile_render, sass
-from .probe_fetch import device_text, median_ms, split
+from .probe_fetch import device_text, split
 
 SEED = 0
 # Tiles of every mode's timing, and of the LARGE_MODES' second one.
@@ -94,7 +94,7 @@ def probe(mode: str, units: int) -> dict:
     del got, want
     row = {"tiles": units, "max_abs_err": err,
            **split(lambda: rfeat.features(mode, *args), LOOPS, REPS),
-           "plain_ms": median_ms(
+           "plain_ms": profile_render.median_ms(
                lambda: rfeat.features_reference(mode, *args), REPS, LOOPS),
            "bound_ms": rfeat.nbytes(mode, *args)
            / profile_render.HBM_RATE * 1e3,

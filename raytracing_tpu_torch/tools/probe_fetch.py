@@ -38,6 +38,7 @@ import torch
 from ..ops import fetch as rfetch
 from ..ops import trace as rtrace
 from ..scene import config as rconfig
+from .profile_render import median_ms
 
 COVER = "data/config/world.config.json"
 MODES = ("index", "radix", "radix16", "onehot")
@@ -86,23 +87,6 @@ def first_mismatch(got, want, sel) -> dict | None:
             "want": f"{int(want[c, g]) & 0xFFFFFFFF:#010x}"}
 
 
-def median_ms(fn, reps: int = 5, loops: int = 1) -> float:
-    """Median over ``reps`` CUDA-event timings of ``loops`` back-to-back
-    calls, per call, after a warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(loops):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / loops)
-    return float(np.median(times))
-
-
 def host_us(fn, calls: int = 200) -> float:
     """Host µs a call: a host clock over ``calls`` calls with no
     synchronise between them (after a warm-up call and a synchronise),
@@ -118,7 +102,7 @@ def host_us(fn, calls: int = 200) -> float:
     return secs / calls * 1e6
 
 
-def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
+def profiled_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
     """Device ms a call from ``torch.profiler`` over ``calls`` calls: per
     device event name (a kernel or a copy), the median time of its events,
     summed over the names. Every call timed here runs each of its kernels
@@ -148,14 +132,14 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
 def split(fn, loops: int, reps: int = 5, calls: int = 20) -> dict:
     """A call's time three ways: the back-to-back median (``median_ms``
     over ``loops`` calls), the host µs a call (``host_us`` over 10 ×
-    ``loops`` calls) and the device ms a call (``device_ms``)."""
+    ``loops`` calls) and the device ms a call (``profiled_ms``)."""
     return {"ms": median_ms(fn, reps, loops),
             "host_us": host_us(fn, 10 * loops),
-            "device_ms": device_ms(fn, calls)}
+            "device_ms": profiled_ms(fn, calls)}
 
 
 def device_text(ms) -> str:
-    """A ``device_ms`` for a log line ("not recorded" where the profiler
+    """A ``profiled_ms`` for a log line ("not recorded" where the profiler
     gave none)."""
     return "not recorded" if ms is None else f"{ms:.5f} ms"
 

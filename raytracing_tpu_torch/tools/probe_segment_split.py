@@ -52,7 +52,6 @@ from ..ops import segment_split as rseg
 from ..ops import trace as rtrace
 from ..scene import config as rconfig
 from . import profile_render
-from .probe_fetch import median_ms
 
 HIT_LOOKFROM = (0.0, 12.0, 0.5)
 HIT_LOOKAT = (0.0, 0.0, 0.0)
@@ -140,7 +139,7 @@ def time_launch(tables, cam, variant: str, steps: int, slots: int,
                                       steps=steps, slots=slots,
                                       variant=variant, clocks=clocks)[1]]
 
-    ms = median_ms(launch, reps)
+    ms = profile_render.median_ms(launch, reps)
     return {"ms": ms, "sm_span_cycles": _sm_span_cycles(clocks),
             "warp_cycles": float((clocks[:, 1] - clocks[:, 0]).double().mean()),
             "hit_share": int(hits[0].sum()) / max(1, steps * slots)}

@@ -357,9 +357,7 @@ def occupancy(tables: rtrace.SceneTables, entry: str = "regen") -> int:
     err = lib.rt_regen_occupancy(*rtrace._table_args(tables), 1, 0, 0,
                                  0 if entry == "regen" else 1,
                                  ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"occupancy query failed: "
-                           f"{_build.error_string(lib, err)}")
+    _build.check(lib, err, "occupancy query")
     return blocks.value
 
 
@@ -371,20 +369,6 @@ def _wave(renderer: Renderer, spp: int):
                        device=renderer.device)
     return rtrace.render_pixels_fused(renderer._tables, renderer._cam_host,
                                       t_end=spp, done=done, **meta)
-
-
-def _time_wave(renderer: Renderer, spp: int, reps: int) -> list[float]:
-    """CUDA-event ms of ``reps`` waves."""
-    out = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _wave(renderer, spp)
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
 
 
 def _same(a, b) -> bool:
@@ -415,7 +399,8 @@ def parts(scenes=SCENES, spp: int = 8, reps: int = 3,
                 elif not _same(res, ref):
                     raise AssertionError(f"probe_sweep: {build} changed "
                                          f"the bits of {name}")
-                times[build] += _time_wave(renderer, spp, reps)
+                times[build] += [profile_render.device_ms(
+                    lambda: _wave(renderer, spp))[1] for _ in range(reps)]
         med = {b: sorted(t)[len(t) // 2] for b, t in times.items()}
         added = {b: med[b] - med["full"] for b in builds if b != "full"}
         out[name] = {

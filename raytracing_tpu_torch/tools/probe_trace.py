@@ -73,15 +73,9 @@ def time_batch(tables, o, d, reps: int) -> dict:
     """One warm-up call, then ``reps`` calls timed by CUDA events."""
     rad, seg = rtrace.trace_rays_fused(tables, o, d, SEED, 0, DEPTH)
     torch.cuda.synchronize()
-    ms = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        rtrace.trace_rays_fused(tables, o, d, SEED, 0, DEPTH)
-        b.record()
-        torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
+    ms = [profile_render.device_ms(
+        lambda: rtrace.trace_rays_fused(tables, o, d, SEED, 0, DEPTH))[1]
+        for _ in range(reps)]
     seg = int(seg)
     med = statistics.median(ms)
     return {"ms": ms, "median_ms": med, "segments": seg,

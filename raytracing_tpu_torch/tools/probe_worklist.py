@@ -33,7 +33,6 @@ import torch
 
 from ..ops import worklist as rwl
 from . import profile_render
-from .probe_fetch import median_ms
 
 FRACTIONS = (1, 2, 4, 8)
 
@@ -71,8 +70,8 @@ def probe_fraction(pass_groups: int, units: int, reps: int,
                                                outs["conds"])),
            "modes": {}}
     for m in rwl.MODES:
-        ms = median_ms(lambda m=m: rwl.worklist_probe(tab, pay, votes, reps, m),
-                       calls)
+        ms = profile_render.median_ms(
+            lambda m=m: rwl.worklist_probe(tab, pay, votes, reps, m), calls)
         b = bound_ms(votes, m, units, reps)
         res["modes"][m] = {
             "ms": ms, "us_per_call": ms * 1e3,

@@ -69,6 +69,8 @@ import sys
 import numpy as np
 import torch
 
+from ..ops import _build
+
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 LEDGER = pathlib.Path(__file__).resolve().with_name("toolchain_ledger.json")
 PROBE_TIMEOUT_S = 600.0
@@ -89,8 +91,6 @@ def _first_line(cmd: list[str], match: str = "") -> str:
 
 
 def _nvcc_release() -> str:
-    from ..ops import _build
-
     try:
         nvcc = _build._nvcc()
     except RuntimeError:
@@ -309,13 +309,6 @@ PROBES = {
 }
 
 
-def _launch_counters() -> list[dict]:
-    from ..ops import divide, dtype, features, segment_split, trace, worklist
-
-    return [m.launch_counts for m in (features, dtype, segment_split,
-                                      worklist, divide, trace)]
-
-
 def run_probe(name: str, device: str) -> dict:
     """One probe in this process: its status, detail and the kernel
     launches it made."""
@@ -328,8 +321,7 @@ def run_probe(name: str, device: str) -> dict:
         lines = [ln for ln in str(e).splitlines() if ln.strip()]
         status = "blocked"
         detail = f"{type(e).__name__}: {lines[0] if lines else ''}"[:300]
-    launches = {k: v for counts in _launch_counters()
-                for k, v in counts.items() if v}
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
     return {"status": status, "detail": detail, "launches": launches}
 
 

@@ -13,6 +13,8 @@ high halves by one 16-byte store each), held on the CPU:
   ``tests/test_torch_cuda.py``).
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -122,18 +124,17 @@ def test_group_map_stores_are_16_byte_aligned_and_disjoint():
 
 class _Launches:
     """Stands in for ``_build`` in the wrapper's launch path: records each
-    launch's arguments (the card runs the kernel, not this sandbox)."""
+    launch's arguments and counts it by its key (the card runs the kernel,
+    not this sandbox)."""
 
     def __init__(self):
         self.calls = []
+        self.launch_counts = collections.Counter()
 
-    def load(self, name):
-        assert name == "dtype"
-        return type("Lib", (), {"rt_dtype_bitcast_launch": "bitcast"})()
-
-    def launch(self, fn, device, *args):
-        self.calls.append((fn, device, args))
-        return 0
+    def launch(self, name, entry, device, *args, count):
+        assert (name, entry) == ("dtype", "rt_dtype_bitcast_launch")
+        self.calls.append((entry, device, args))
+        self.launch_counts[count] += 1
 
 
 def _aligned_view(offset_words: int, rows: int = 8) -> torch.Tensor:
@@ -162,7 +163,6 @@ def test_wrapper_checks_and_halves_buffer(monkeypatch):
 
     monkeypatch.setattr(torch.Tensor, "new_empty", counted)
     monkeypatch.setattr(torch, "zeros", None)  # no memset on the path
-    tdt.reset_launch_counts()
     for off, halves in ((2, False), (0, False), (0, True)):
         x = _aligned_view(off)
         allocs.clear()
@@ -179,7 +179,7 @@ def test_wrapper_checks_and_halves_buffer(monkeypatch):
             assert allocs == [torch.int16] and args[2] is None
         assert out.shape == (16, COLS) and out.dtype == torch.int16
         assert args[1] == out.data_ptr()
-    assert tdt.launch_counts["dtype_bitcast"] == 3
+    assert fake.launch_counts == {"dtype_bitcast": 3}
     with pytest.raises(ValueError, match="contiguous"):
         tdt._launch_bitcast(torch.empty(8, 2 * COLS)[:, ::2], halves=False)
     assert _build is not fake
