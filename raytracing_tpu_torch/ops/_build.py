@@ -276,6 +276,22 @@ def registers(key: str) -> dict[str, int]:
     return regs
 
 
+def spills(key: str) -> dict[str, tuple[int, int]]:
+    """Spill bytes (stored, loaded) per compiled function (mangled name) of
+    a library built in this process, from ``build_info[key]``."""
+    out, name = {}, None
+    for line in build_info[key]["ptxas"].splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
 def load(name: str, defines=()) -> ctypes.CDLL:
     """The built library of kernel ``name`` (with ``-D`` for each of
     ``defines``) with its argtypes set."""

@@ -14,7 +14,9 @@ time of their parts on whole waves.
    ``main_row_faults`` holds the main loops of ``MAIN_ROW_MAX``'s kernels
    to their most instructions a swept row, with no call, branch out or
    4-byte ``LDS``; ``coop_row_faults`` the cooperative loops of
-   ``COOP_ROW_MAX``'s kernels to theirs (below).
+   ``COOP_ROW_MAX``'s kernels (and of ``TRI_COOP_ROW_MAX``'s, the
+   two-level triangle stage 1) to theirs (below), with no call, branch out
+   or spill.
    The triangle sweep's loops (``TRI_SASS_KERNELS``: the flat and
    two-level rules in the staged body of both entries and in the chunked
    body) hold one ``MUFU.RCP`` a row (the key's reciprocal) and no
@@ -107,17 +109,27 @@ MAIN_ROW_MAX = {"regen": 32.0, "segment_full": 32.0, "regen_sph2l": 32.75}
 # two-level rule and 34.25 under the flat rule on sm_90a with CUDA 12.8,
 # where the row_key form took 40.25 and 37.25.
 COOP_ROW_MAX = {"regen_sph2l": 37.25, "regen_chunked": 34.25}
+# The same for the two-level triangle stage 1's cooperative loop (regen.cu,
+# tri_stage1_warp: four lean_tri rows a lane a trip, with the ray's load,
+# both reductions, the vote and the keep) in the staged body of both
+# entries: 69.25 in the regen entry and 69.5 in the trace entry on sm_90a
+# with CUDA 12.8, where tri_key's form took 75.0 and 75.25.
+TRI_COOP_ROW_MAX = {"regen_tri_2l": 69.25, "regen_tex_tri_2l": 69.25,
+                    "trace_tri_2l": 69.5, "trace_tex_tri_2l": 69.5}
 PROBE_BUILDS = {"full": (), "stage_x2": ("RT_SWEEP_PROBE=1",),
                 "sweep_x2": ("RT_SWEEP_PROBE=2",)}
 SCENES = ("stress:8192", "stress:2048", "cover")
 # The triangle sweep's loops: the flat rule (golden mesh, mesh:2) and the
-# two-level rule (mesh:3, glTF) in the staged body of both entries, and
-# both rules in the chunked body (the 4,200-sphere scenes).
+# two-level rule (mesh:3, glTF) in the staged body of both entries (the
+# textured variants are the ones the mesh:3 scene runs), and both rules in
+# the chunked body (the 4,200-sphere scenes).
 TRI_SASS_KERNELS = {
     "regen_tri_flat": ("regen", r"regen_stagedILb0ELi1EE"),
     "regen_tri_2l": ("regen", r"regen_stagedILb0ELi2EE"),
+    "regen_tex_tri_2l": ("regen", r"regen_stagedILb1ELi2EE"),
     "trace_tri_flat": ("regen", r"trace_stagedILb0ELi1EE"),
     "trace_tri_2l": ("regen", r"trace_stagedILb0ELi2EE"),
+    "trace_tex_tri_2l": ("regen", r"trace_stagedILb1ELi2EE"),
     "regen_chunked_tri_flat": ("regen", r"regen_chunkedILb0ELb0ELi1EE"),
     "regen_chunked_tri_2l": ("regen", r"regen_chunkedILb0ELb0ELi2EE"),
 }
@@ -318,12 +330,14 @@ def main_row_faults(counts: dict) -> dict:
     return faults
 
 
-def coop_row_faults(counts: dict) -> dict:
-    """The kernels of ``COOP_ROW_MAX`` in ``sass_counts()``'s ``counts``
-    without a cooperative loop, or with one that takes more instructions a
-    row than allowed: label -> what is wrong."""
+def coop_row_faults(counts: dict, table: dict = COOP_ROW_MAX) -> dict:
+    """The kernels of ``table`` (``COOP_ROW_MAX``, or ``TRI_COOP_ROW_MAX``
+    with ``tri_sass_counts()``'s ``counts``) without a cooperative loop,
+    or with one that takes more instructions a row than allowed, branches
+    out (``CALL``, ``BSSY``, ``BSYNC``) or spills (a local load or store):
+    label -> what is wrong."""
     faults = {}
-    for label, most in COOP_ROW_MAX.items():
+    for label, most in table.items():
         loops = counts[label]["coop"]
         if not loops:
             faults[label] = "no cooperative loop"
@@ -332,6 +346,11 @@ def coop_row_faults(counts: dict) -> dict:
         if worst > most:
             faults[label] = (f"{worst:.2f} instructions a row, more than "
                              f"{most:g}")
+        elif any(lp["branches_out"] for lp in loops):
+            faults[label] = "a call or a branch out"
+        elif any(op in lp["opcodes_per_row"] for lp in loops
+                 for op in ("LDL", "STL")):
+            faults[label] = "a spill (LDL or STL)"
     return faults
 
 
@@ -431,11 +450,17 @@ def run(do_sass: bool = True, do_parts: bool = True, scenes=SCENES,
         res["main_row_faults"] = main_row_faults(res["sass"])
         res["coop_row_faults"] = coop_row_faults(res["sass"])
         res["tri_sass"] = tri_sass_counts(dump=dump)
+        res["tri_coop_row_faults"] = coop_row_faults(res["tri_sass"],
+                                                     TRI_COOP_ROW_MAX)
         _build.load("regen")
         kernels = {**SASS_KERNELS, **TRI_SASS_KERNELS}
         res["registers"] = {
             label: regs for label, (lib, pattern) in kernels.items()
             for name, regs in _build.registers(lib).items()
+            if re.search(pattern, name)}
+        res["spills"] = {
+            label: sp for label, (lib, pattern) in kernels.items()
+            for name, sp in _build.spills(lib).items()
             if re.search(pattern, name)}
     if do_parts:
         res["parts"] = parts(scenes, spp, reps)
@@ -480,7 +505,10 @@ def main(argv: list[str] | None = None) -> int:
     if "main_row_faults" in res:
         print(f"main row faults: {res['main_row_faults']}")
         print(f"cooperative row faults: {res['coop_row_faults']}")
+        print(f"triangle cooperative row faults: "
+              f"{res['tri_coop_row_faults']}")
     print(f"registers: {res.get('registers')}")
+    print(f"spills (bytes stored, loaded): {res.get('spills')}")
     for name, r in res.get("parts", {}).items():
         print(f"{name} [{r['variant']}, {r['blocks_per_sm']} blocks/SM] "
               f"{r['slots']} slots @ {r['spp']}: "
